@@ -1,0 +1,67 @@
+"""LightGCN as plain functions over a params dict ``{"embedding": [N, D]}``.
+
+Counterpart of ``gnn_ecommerce_tpu/models/lightgcn.py`` (forward only): the
+config, the Xavier-uniform init and the layered alpha-weighted embedding.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from ..graph.build import BipartiteGraph
+from ..ops.propagate import propagate_segment
+
+
+@dataclasses.dataclass(frozen=True)
+class LightGCNConfig:
+    """Model hyperparameters."""
+
+    num_nodes: int
+    embedding_dim: int = 64
+    num_layers: int = 3
+    # None -> uniform 1/(num_layers+1); else a length num_layers+1 vector.
+    alpha: Optional[Sequence[float]] = None
+
+    def alphas(self, device: str | torch.device = "cpu") -> torch.Tensor:
+        if self.alpha is None:
+            return torch.full(
+                (self.num_layers + 1,), 1.0 / (self.num_layers + 1),
+                dtype=torch.float32, device=device,
+            )
+        a = torch.as_tensor(self.alpha, dtype=torch.float32, device=device)
+        if a.shape != (self.num_layers + 1,):
+            raise ValueError(f"alpha needs {self.num_layers + 1} entries")
+        return a
+
+
+def init_params(
+    generator: torch.Generator,
+    cfg: LightGCNConfig,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Xavier-uniform embedding init, bound sqrt(6 / (num_nodes + dim)) as
+    ``torch.nn.init.xavier_uniform_`` gives for the [num_nodes, dim] table.
+    Drawn on the generator's device, then moved to ``device``."""
+    bound = (6.0 / (cfg.num_nodes + cfg.embedding_dim)) ** 0.5
+    emb = torch.empty(
+        cfg.num_nodes, cfg.embedding_dim, dtype=dtype, device=generator.device
+    ).uniform_(-bound, bound, generator=generator)
+    return {"embedding": emb.to(device)}
+
+
+def get_embedding(
+    params: dict,
+    graph: BipartiteGraph,
+    cfg: LightGCNConfig,
+) -> torch.Tensor:
+    """Alpha-weighted sum of the L+1 layer embeddings, in the table's dtype."""
+    x = params["embedding"]
+    alpha = cfg.alphas(x.device).to(x.dtype)
+    out = x * alpha[0]
+    for layer in range(cfg.num_layers):
+        x = propagate_segment(graph, x)
+        out = out + x * alpha[layer + 1]
+    return out

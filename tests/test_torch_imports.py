@@ -1,0 +1,59 @@
+"""The PyTorch port stands alone: every module of gnn_ecommerce_tpu_torch,
+and chip_smoke.py, imports with JAX and the JAX package made unimportable,
+and no source names either."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "gnn_ecommerce_tpu_torch"
+
+
+def _port_modules() -> list[str]:
+    names = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_every_module_imports_without_jax():
+    modules = _port_modules() + ["chip_smoke"]
+    assert "gnn_ecommerce_tpu_torch.ops.spmm_fast" in modules
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['gnn_ecommerce_tpu'] = None\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'gnn_ecommerce_tpu.'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    done = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert done.stdout.startswith("ok")
+
+
+def test_sources_name_no_jax():
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gnn_ecommerce_tpu)\b(?!_torch)", re.M)
+    jax_module = re.compile(r"\bgnn_ecommerce_tpu\.")
+    sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 15
+    for path in sources:
+        text = path.read_text()
+        assert not jax_import.search(text), path
+        assert not jax_module.search(text), path
