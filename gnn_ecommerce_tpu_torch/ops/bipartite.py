@@ -19,13 +19,14 @@ plans and operators built from them live on the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
 
 from .. import native
-from ..device import exact_f32_matmul, mm_f32, resolve_device
+from ..device import mm_f32, resolve_device
 from ..graph.build import BipartiteGraph
 from .spmm_fast import (
     EllPlan,
@@ -246,8 +247,6 @@ def build_item_operator(
         h_vals = torch.from_numpy(ui_w[take]).to(dev)
         arc_ptr = np.append(0, np.cumsum(h_counts))
         mm_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
-        if mm_dtype == torch.float32:
-            exact_f32_matmul()
         for s in range(0, len(h_first), heavy_chunk):
             lo, hi = int(arc_ptr[s]), int(arc_ptr[min(s + heavy_chunk, len(h_first))])
             M = torch.zeros(n_items * heavy_chunk, dtype=torch.float32, device=dev)
@@ -278,12 +277,6 @@ class FastBipartite:
     @property
     def n_items(self) -> int:
         return self.split.n_items
-
-    def _to_items(self, x_users):
-        return fast_to_items(x_users, self.fops)
-
-    def _to_users(self, x_items):
-        return fast_to_users(x_items, self.fops)
 
 
 def build_fast_bipartite(
@@ -317,8 +310,6 @@ def item_chain_core(E_u, E_i, to_items_fn, B, num_layers: int, alpha):
     D] item embedding and the alpha-weighted item source that to_users
     consumes. Two levels are computed per B pass, ``B @ [i^{l-2} |
     i^{l-1}]``, so B streams once per pair of layers."""
-    if B.dtype == torch.float32:
-        exact_f32_matmul()
     i_seq = [E_i.float(), to_items_fn(E_u)]
     D = E_i.shape[1]
     l = 2
@@ -350,6 +341,8 @@ def fast_get_embedding(
         )
     alpha = alpha.to(E.device)
     E_u, E_i = E[: fb.n_users], E[fb.n_users :]
-    out_i, S_i = item_chain_core(E_u, E_i, fb._to_items, fb.item_op, num_layers, alpha)
-    out_u = alpha[0] * E_u.float() + fb._to_users(S_i)
+    out_i, S_i = item_chain_core(
+        E_u, E_i, functools.partial(fast_to_items, fops=fb.fops), fb.item_op, num_layers, alpha
+    )
+    out_u = alpha[0] * E_u.float() + fast_to_users(S_i, fb.fops)
     return torch.cat([out_u, out_i]).to(E.dtype)

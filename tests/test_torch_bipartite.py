@@ -148,3 +148,16 @@ def test_convert_roundtrip_unchanged():
         np.asarray(jax_get_embedding(again, graph, cfg)),
         np.asarray(jax_get_embedding(jp, graph, cfg)),
     )
+
+
+def test_resolve_device_sets_exact_f32_and_mm_f32_checks_it(monkeypatch):
+    from gnn_ecommerce_tpu_torch.device import mm_f32, resolve_device
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    a = torch.ones(2, 3)
+    with pytest.raises(RuntimeError, match="without TF32"):
+        mm_f32(a, a.T)
+    resolve_device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    torch.testing.assert_close(mm_f32(a, a.T), torch.full((2, 2), 3.0))
