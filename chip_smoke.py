@@ -1,29 +1,46 @@
-"""Drive the PyTorch port's serving path on one H100 and hold its CUDA kernel
-against its plain version.
+"""Drive the PyTorch port's serving and training paths on one H100 and hold
+its CUDA kernels against their plain versions.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, one printed line each (plus detail lines):
-  0 device   the card's name and power limit (nvidia-smi), TF32 off
-  1 build    nvcc builds csrc/segreduce.cu for sm_90a
-  2 data     a full-scale synthetic corpus made from --seed: 1,552,888 users x
-             54,571 items, 9,649,537 train edges, Zipf(0.9) item popularity,
-             power-law user degrees (the 16,384 heaviest users hold about a
-             fifth of the arcs), a purchase CSR for the request masks
-  3 kernel   the segment-reduce kernel against its plain version at D=90:
-             f32 over all user->item arcs (the service's run) and bf16 over
-             the tail left by the 16,384-user head (the main configuration's
-             run); kernel, plain and torch.sparse.mm times and the bound
-  4 forward  the RecommenderService (dim 90, 5 layers, f32) propagates once
-             through the fast forward; its cache is held against the layered
-             get_embedding on the card; forward time and a profiler breakdown
-  5 bf16     the main configuration's forward (bf16 B_ii, messages and a
-             16,384-user head) against the f32 forward; time and breakdown
-  6 serve    the REST server with the batcher answers :predict requests of
-             1, 8, 64 and 512 users (300 timed per size, p50/p90/p99), each
-             answer checked against a plain top-K
-  7 kernels  one JSON line per the port's kernels, with the launches counted
-             over phases 4-6 (the main path)
+  0 device    the card's name and power limit (nvidia-smi), TF32 off
+  1 build     nvcc builds csrc/segreduce.cu and csrc/stream_sum.cu for sm_90a,
+              both at once
+  2 data      a full-scale synthetic corpus made from --seed: 1,552,888 users
+              x 54,571 items, 10,157,407 unique edges of which 5% are held
+              out (half val, half test), leaving 9,649,537 train edges; Zipf
+              (0.9) item popularity, power-law user degrees (the 16,384
+              heaviest users hold about a fifth of the arcs); the splits
+              follow the JAX package's data/prepare.py
+  3 kernel    each kernel against its plain version on the main path's
+              inputs: the segment reduce (K1) in f32 over all user->item arcs
+              (the service's run) and in bf16 over the tail left by the
+              16,384-user head (the main configuration's run); the stream sum
+              (K3) over K1's bf16 tail messages; kernel, plain and library
+              times and the bound
+  4 forward   the RecommenderService (dim 90, 5 layers, f32) propagates once
+              through the fast forward; its cache is held against the layered
+              get_embedding on the card; forward time and a profiler breakdown
+  5 bf16      the main configuration's forward (bf16 B_ii, messages and a
+              16,384-user head) against the f32 forward; time and breakdown
+  6 serve     the REST server with the batcher answers :predict requests of
+              1, 8, 64 and 512 users (300 timed per size, p50/p90/p99), each
+              answer checked against a plain top-K
+  7 grad      on one fixed batch of 1024, the exact fast batched loss's
+              gradient and the full fast forward's loss gradient (K1 runs in
+              fast_to_users' backward) against the layered loss's gradient,
+              taken in f64
+  8 breakdown the train step's parts (the port of scripts/profile_step.py):
+              fast_to_items, fast_to_users, the B_ii pair matmul, K1 bf16 and
+              K3 on its messages, one train step, one step under the
+              profiler; val R@20 of the untrained params and of popularity
+  9 train     train() at dim 90 / 5 layers / batch 1024 / bf16 / 16,384
+              head, 2 epochs of 235 batches with async checkpoints, then a
+              resume from LAST for a third epoch
+ 10 kernels   one JSON line of the port's kernels, with their launches on
+              the paths of phases 4-6, 7, 8 and 9 (each counted from 0 just
+              before the path and read just after)
 The last line is {"ok": true, "device": {...}}. Any failed check raises.
 Without CUDA, or without the repository around this file, it exits non-zero
 and prints no result.
@@ -31,10 +48,12 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -44,30 +63,57 @@ import torch
 
 from gnn_ecommerce_tpu_torch.data.prepare import CsrList, EvalSplit, PreparedData, SamplerArrays
 from gnn_ecommerce_tpu_torch.device import mm_f32, resolve_device
+from gnn_ecommerce_tpu_torch.eval.evaluate import build_eval_buckets, evaluate_bucketed
 from gnn_ecommerce_tpu_torch.graph.build import build_graph
 from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, get_embedding, init_params
-from gnn_ecommerce_tpu_torch.ops._kernels import SEGREDUCE
+from gnn_ecommerce_tpu_torch.models.losses import bpr_loss, reg_loss
+from gnn_ecommerce_tpu_torch.ops._kernels import SEGREDUCE, STREAM_SUM, stream_sum, stream_sum_plain
 from gnn_ecommerce_tpu_torch.ops.bipartite import (
     build_fast_bipartite,
+    fast_batch_embeddings,
     fast_get_embedding,
+    fast_to_items,
+    fast_to_users,
     split_graph,
     split_heavy_users,
 )
 from gnn_ecommerce_tpu_torch.ops.spmm_fast import build_segreduce_plan, segreduce_plain
+from gnn_ecommerce_tpu_torch.sampling.bpr import make_sampler_data
 from gnn_ecommerce_tpu_torch.serve import BatchingRecommender, RecommenderService, make_server
+from gnn_ecommerce_tpu_torch.train import LAST_NAME, BEST_NAME, TrainConfig, load_checkpoint, train
+from gnn_ecommerce_tpu_torch.train.step import Adam, make_loss_fn, make_train_fns
 
-N_USERS, N_ITEMS, N_EDGES = 1_552_888, 54_571, 9_649_537
+N_USERS, N_ITEMS, N_EDGES = 1_552_888, 54_571, 10_157_407
+HOLDOUT = 0.05  # held out at random, half val, half test (data/prepare.py)
+N_EDGES_TRAIN = N_EDGES - int(round(N_EDGES * HOLDOUT))  # 9,649,537
 DIM, LAYERS, HEAVY_USERS = 90, 5, 16_384
+BATCH, LR, DECAY = 1024, 0.005, 1e-4
+EDGE_CAP = max(64 * BATCH, 8192)  # the driver's default batch arc capacity
 # Timed requests per size, after a few untimed ones; each answer is checked
 # after the timing, so the check does not sit between two requests.
 REQUESTS_PER_SIZE, WARMUP_REQUESTS = 300, 5
 ITEM_SKEW, USER_SKEW = 0.9, 0.75
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+# (kernel wrapper, mode) per row of the kernels line.
+KERNELS = {
+    "segreduce_f32": (SEGREDUCE, "float32"),
+    "segreduce_bf16": (SEGREDUCE, "bfloat16"),
+    "stream_sum_bf16": (STREAM_SUM, "bfloat16"),
+}
 
 
 def phase(n: int, name: str, t0: float, detail: str = "") -> None:
     print(f"phase {n} {name}: {time.perf_counter() - t0:.2f} s {detail}".rstrip(), flush=True)
+
+
+def reset_launches() -> None:
+    for kernel in (SEGREDUCE, STREAM_SUM):
+        kernel.launches = {mode: 0 for mode in kernel.launches}
+
+
+def read_launches() -> dict:
+    return {name: kernel.launches[mode] for name, (kernel, mode) in KERNELS.items()}
 
 
 def zipf_ranks(rng: np.random.Generator, n: int, m: int, a: float) -> np.ndarray:
@@ -78,10 +124,27 @@ def zipf_ranks(rng: np.random.Generator, n: int, m: int, a: float) -> np.ndarray
     return np.minimum(r.astype(np.int64) - 1, n - 1)
 
 
+def csr_rows(keys: np.ndarray, rows: np.ndarray, n_items: int) -> CsrList:
+    """CSR over ``rows`` (sorted user ids) of the items of the sorted unique
+    ``keys`` (user * n_items + item): per-row sorted local item ids."""
+    users = keys // n_items
+    lo, hi = np.searchsorted(users, rows, "left"), np.searchsorted(users, rows, "right")
+    lens = hi - lo
+    take = np.repeat(lo, lens) + (np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens))
+    return CsrList(np.append(0, np.cumsum(lens)).astype(np.int64), keys[take] % n_items)
+
+
 def make_prepared(seed: int, n_users: int, n_items: int, n_edges: int) -> PreparedData:
     """Unique (user, item) edges: one per user, the rest drawn with power-law
-    user activity and Zipf item popularity; about 15% purchases (weight 1.0),
-    the rest view/cart weights."""
+    user activity and Zipf item popularity; about 15% purchases (weight
+    1.0), the rest view/cart weights.
+
+    5% of the edges are held out at random, half for val and half for test,
+    as ``data/prepare.py`` splits. Each user's first edge stays in train, so
+    every user and (checked) every item is in the train graph: no relabelling
+    is needed, and the train graph keeps the full corpus's shape. Eval users
+    are the users with a purchase in the split; their masks are their train
+    purchases; ignore lists are train ∪ val ∪ test purchases (node space)."""
     rng = np.random.default_rng(seed)
     user_of_rank = rng.permutation(n_users)
     base = np.arange(n_users, dtype=np.int64) * n_items + zipf_ranks(rng, n_items, n_users, ITEM_SKEW)
@@ -91,29 +154,44 @@ def make_prepared(seed: int, n_users: int, n_items: int, n_edges: int) -> Prepar
         draw = user_of_rank[zipf_ranks(rng, n_users, m, USER_SKEW)] * n_items
         draw += zipf_ranks(rng, n_items, m, ITEM_SKEW)
         extra = np.setdiff1d(np.concatenate([extra, draw]), base)
-    keys = np.sort(np.concatenate([base, rng.permutation(extra)[: n_edges - n_users]]))
-    users, items = keys // n_items, keys % n_items
-    weight = rng.choice(
-        np.array([0.01, 0.1, 0.11, 1.0], np.float32), size=len(keys), p=[0.7, 0.1, 0.05, 0.15]
-    )
-    buy = weight == 1.0
-    pos_users, pos_start = np.unique(users[buy], return_index=True)
-    pos_indptr = np.append(pos_start, int(buy.sum())).astype(np.int64)
-    pos_flat = items[buy] + n_users  # keys are sorted: per-user sorted items
-    empty = EvalSplit(
-        user_ids=np.empty(0, np.int64),
-        truth=CsrList(np.zeros(1, np.int64), np.empty(0, np.int64)),
-        train_mask=CsrList(np.zeros(1, np.int64), np.empty(0, np.int64)),
-    )
+    extra = rng.permutation(extra)[: n_edges - n_users]
+    n_hold = int(round(n_edges * HOLDOUT))
+    test_keys, val_keys = extra[: n_hold // 2], extra[n_hold // 2 : n_hold]
+    train_keys = np.sort(np.concatenate([base, extra[n_hold:]]))
+    weights = np.array([0.01, 0.1, 0.11, 1.0], np.float32)
+    p = [0.7, 0.1, 0.05, 0.15]
+    train_w = rng.choice(weights, size=len(train_keys), p=p)
+    if len(np.unique(train_keys % n_items)) != n_items:
+        raise RuntimeError("an item has no train edge; the corpus needs relabelling")
+
+    def buys(keys):
+        return np.unique(keys[rng.choice(weights, size=len(keys), p=p) == 1.0])
+
+    train_buy = train_keys[train_w == 1.0]
+    val_buy, test_buy = buys(val_keys), buys(test_keys)
+
+    def eval_split(split_buy):
+        users = np.unique(split_buy // n_items)
+        return EvalSplit(
+            user_ids=users,
+            truth=csr_rows(split_buy, users, n_items),
+            train_mask=csr_rows(train_buy, users, n_items),
+        )
+
+    pos_users = np.unique(train_buy // n_items)
+    pos = csr_rows(train_buy, pos_users, n_items)
+    ign = csr_rows(np.unique(np.concatenate([train_buy, val_buy, test_buy])), pos_users, n_items)
     return PreparedData(
         n_users=n_users,
         n_items=n_items,
-        edge_user=users,
-        edge_item_node=items + n_users,
-        edge_weight=weight,
-        sampler=SamplerArrays(pos_users, pos_indptr, pos_flat, pos_indptr, pos_flat),
-        val=empty,
-        test=empty,
+        edge_user=train_keys // n_items,
+        edge_item_node=train_keys % n_items + n_users,
+        edge_weight=train_w,
+        sampler=SamplerArrays(
+            pos_users, pos.indptr, pos.values + n_users, ign.indptr, ign.values + n_users
+        ),
+        val=eval_split(val_buy),
+        test=eval_split(test_buy),
         user_classes=np.arange(n_users),
         item_classes=np.arange(n_items),
     )
@@ -162,7 +240,7 @@ def device_profile(label: str, fn, top: int = 6) -> None:
 
 
 def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
-    """Kernel against its plain version on the same inputs, then times."""
+    """K1 against its plain version on the same inputs, then times."""
     out = SEGREDUCE(table, plan)
     ref = segreduce_plain(table, plan)
     torch.cuda.synchronize()
@@ -227,6 +305,56 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
     }
 
 
+def tail_messages(table16: torch.Tensor, plan) -> torch.Tensor:
+    """K1's bf16 messages: each arc's bf16 row times its bf16-rounded
+    weight, rounded to bf16 (the stream the TPU probe sums)."""
+    w16 = plan.w.to(torch.bfloat16).float()
+    return (table16.index_select(0, plan.src).float() * w16[:, None]).to(torch.bfloat16)
+
+
+def check_stream_sum(msgs: torch.Tensor) -> dict:
+    """K3 against its plain version on K1's bf16 tail messages, then times.
+    Tolerance: 1e-5 of the largest column's sum of magnitudes (both are f32
+    sums of the same bf16 values in different orders)."""
+    out = STREAM_SUM(msgs)
+    ref = stream_sum_plain(msgs)
+    ref64 = msgs.double().sum(0, keepdim=True)
+    torch.cuda.synchronize()
+    scale = msgs.float().abs().sum(0).max().item()
+    err = (out - ref).abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * scale)
+    f64_kernel = (out.double() - ref64).abs().max().item()
+    f64_plain = (ref.double() - ref64).abs().max().item()
+    n, d = msgs.shape
+    bytes_once = n * d * msgs.element_size() + d * 4
+    flops = n * d
+    bound_ms = max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    kernel_ms = time_ms(lambda: STREAM_SUM(msgs))
+    plain_ms = time_ms(lambda: stream_sum_plain(msgs))
+    library_ms = time_ms(lambda: torch.sum(msgs, dim=0, keepdim=True, dtype=torch.float32))
+    print(
+        f"  stream_sum_bf16: rows {n} max_abs_err {err:.3e} (max col Σ|x| {scale:.3e}; "
+        f"vs f64: kernel {f64_kernel:.3e} plain {f64_plain:.3e}) kernel_ms {kernel_ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bytes {bytes_once} "
+        f"bound_ms {bound_ms:.4f}",
+        flush=True,
+    )
+    return {
+        "name": "stream_sum_bf16",
+        "route": "cuda",
+        "source": "gnn_ecommerce_tpu_torch/csrc/stream_sum.cu",
+        "replaces": "scripts/profile_step.py:169",
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_once / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations",
+        "library_ms": library_ms,
+        "rows": n,
+    }
+
+
 def plain_topk(emb, ids, prepared, k):
     """Reference answer: full scores, purchased items masked, torch.topk."""
     n_users = prepared.n_users
@@ -265,6 +393,59 @@ def post(url: str, body) -> dict:
         return json.load(r)
 
 
+def layered_grad_f64(params, graph, cfg, users, pos, neg) -> torch.Tensor:
+    """The layered loss's gradient in f64: ``Σ_l α_l Â^l G`` plus the L2
+    term's, where G scatters the BPR gradient of the batch's final rows (Â is
+    symmetric, so its VJP is another pass of Â). At the corpus's hub item
+    (about 250K arcs) the f32 layered gradient's own summation error,
+    added by ``index_add_`` in no fixed order, is about as large as the
+    check's tolerance; in f64 it is far below it."""
+    src, dst, w = graph.src.long(), graph.dst.long(), graph.w_norm.double()
+    alpha = cfg.alphas(src.device).double()
+
+    def prop(x):  # Â x, 4M arcs at a time (the f64 messages are 2.9 GB)
+        out = torch.zeros_like(x)
+        for lo in range(0, src.numel(), 4_000_000):
+            hi = lo + 4_000_000
+            out.index_add_(0, dst[lo:hi], x.index_select(0, src[lo:hi]) * w[lo:hi, None])
+        return out
+
+    def alpha_sum(x):  # Σ_l α_l Â^l x
+        acc = x * alpha[0]
+        for layer in range(cfg.num_layers):
+            x = prop(x)
+            acc += x * alpha[layer + 1]
+        return acc
+
+    E = params["embedding"].detach().double()
+    with torch.no_grad():
+        out = alpha_sum(E)
+    rows = [out[ids].requires_grad_() for ids in (users, pos, neg)]
+    u, p, n = rows
+    bpr = bpr_loss((u * p).sum(-1), (u * n).sum(-1))
+    g_rows = torch.autograd.grad(bpr, rows)
+    E_leaf = E.requires_grad_()
+    g_reg = torch.autograd.grad(reg_loss(E_leaf, users, pos, neg, DECAY), E_leaf)[0]
+    del out, E_leaf
+    with torch.no_grad():
+        G = torch.zeros_like(E)
+        for ids, g in zip((users, pos, neg), g_rows):
+            G.index_add_(0, ids, g)
+        return alpha_sum(G) + g_reg
+
+
+def fixed_batch(prepared: PreparedData, seed: int, dev) -> tuple:
+    """One BPR batch drawn in numpy: buyers, one of their train purchases,
+    and a uniform item."""
+    rng = np.random.default_rng(seed)
+    s = prepared.sampler
+    slot = rng.integers(0, len(s.users), BATCH)
+    lo, hi = s.pos_indptr[slot], s.pos_indptr[slot + 1]
+    pos = s.pos_flat[lo + (rng.random(BATCH) * (hi - lo)).astype(np.int64)]
+    neg = prepared.n_users + rng.integers(0, prepared.n_items, BATCH)
+    return tuple(torch.from_numpy(np.asarray(a, np.int64)).to(dev) for a in (s.users[slot], pos, neg))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the corpus and weights")
@@ -274,6 +455,7 @@ def main(argv=None) -> int:
         return 2
     dev = resolve_device(torch.device("cuda", 0))
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     smi = subprocess.run(
@@ -287,11 +469,26 @@ def main(argv=None) -> int:
     phase(0, "device", t0, f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    SEGREDUCE.load()
+    errors = []
+
+    def build(kernel):
+        try:
+            kernel.load()
+        except Exception as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    builders = [threading.Thread(target=build, args=(k,)) for k in (SEGREDUCE, STREAM_SUM)]
+    for b in builders:
+        b.start()
+    for b in builders:
+        b.join()
+    if errors:
+        raise errors[0]
     phase(1, "build", t0)
-    for line in SEGREDUCE.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for kernel in (SEGREDUCE, STREAM_SUM):
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {kernel.STEM}:", line.strip())
 
     t0 = time.perf_counter()
     prepared = make_prepared(args.seed, N_USERS, N_ITEMS, N_EDGES)
@@ -304,13 +501,16 @@ def main(argv=None) -> int:
     head_share = np.sort(deg)[::-1][:HEAVY_USERS].sum() / len(split.ui_src_user)
     phase(
         2, "data", t0,
-        f"users {prepared.n_users} items {prepared.n_items} edges {len(prepared.edge_user)} "
-        f"head share {head_share:.4f} buyers {len(prepared.sampler.users)}",
+        f"users {prepared.n_users} items {prepared.n_items} train edges {len(prepared.edge_user)} "
+        f"head share {head_share:.4f} buyers {len(prepared.sampler.users)} "
+        f"val users {len(prepared.val.user_ids)} test users {len(prepared.test.user_ids)}",
     )
+    assert len(prepared.edge_user) == N_EDGES_TRAIN
 
     cfg = LightGCNConfig(prepared.n_users + prepared.n_items, DIM, LAYERS)
     params = init_params(torch.Generator().manual_seed(args.seed), cfg, device=dev)
-    with torch.inference_mode():
+    path_launches = {}
+    with torch.no_grad():
         t0 = time.perf_counter()
         E_u = params["embedding"][: prepared.n_users]
         full_plan = build_segreduce_plan(
@@ -321,13 +521,16 @@ def main(argv=None) -> int:
         _, w_hi, t_src, t_dst, t_w, *_ = split_heavy_users(split, HEAVY_USERS, "bfloat16", dev)
         del w_hi
         tail_plan = build_segreduce_plan(t_src, t_dst, t_w, split.n_items, device=dev)
-        rows.append(check_kernel("segreduce_bf16", E_u.to(torch.bfloat16), tail_plan))
-        del tail_plan, E_u
+        E_u16 = E_u.to(torch.bfloat16)
+        rows.append(check_kernel("segreduce_bf16", E_u16, tail_plan))
+        msgs = tail_messages(E_u16, tail_plan)
+        rows.append(check_stream_sum(msgs))
+        del tail_plan, E_u, E_u16, msgs
         torch.cuda.empty_cache()
         phase(3, "kernel", t0)
 
-        # The main path: every launch count starts at 0 here.
-        SEGREDUCE.launches = {mode: 0 for mode in SEGREDUCE.launches}
+        # Serving path (phases 4-6): every launch count starts at 0 here.
+        reset_launches()
         t0 = time.perf_counter()
         svc = RecommenderService(prepared, params, cfg, k=20, device=dev)
         f32_launches = SEGREDUCE.launches["float32"]
@@ -377,8 +580,7 @@ def main(argv=None) -> int:
             f"B_ii {fb16.build_seconds['item_op']:.2f} s plans {fb16.build_seconds['plans']:.2f} s "
             f"forward_ms {fwd16_ms:.3f} rel_frobenius_vs_f32 {rel16:.3e}",
         )
-        del fb16, emb16
-        torch.cuda.empty_cache()
+        del emb16
 
     t0 = time.perf_counter()
     batcher = BatchingRecommender(svc)
@@ -406,7 +608,8 @@ def main(argv=None) -> int:
         server.shutdown()
         server.server_close()
     thread.join(timeout=30)
-    with torch.inference_mode():
+    path_launches["serve"] = read_launches()
+    with torch.no_grad():
         for ids, items in answers:
             assert len(items) == len(ids) and all(len(r) == 20 for r in items)
             check_answer(items, *plain_topk(emb, ids, prepared, 20))
@@ -419,13 +622,170 @@ def main(argv=None) -> int:
         f"{len(answers)} answers checked; p50/p90/p99 ms "
         + " ".join(f"{s}:{p[0]:.3f}/{p[1]:.3f}/{p[2]:.3f}" for s, p in pct.items()),
     )
+    del emb, batcher
 
-    launches = dict(SEGREDUCE.launches)
+    # Gradient path: the exact fast batched loss and the full fast forward's
+    # loss against the layered loss, on one fixed batch.
+    t0 = time.perf_counter()
+    reset_launches()
+    users, pos, neg = fixed_batch(prepared, args.seed + 2, dev)
+    leaf = {"embedding": params["embedding"].detach().requires_grad_()}
+
+    def grad_of(loss_fn, graph):
+        loss, (_, _, dropped) = loss_fn(leaf, graph, users, pos, neg)
+        assert int(dropped) == 0
+        return torch.autograd.grad(loss, leaf["embedding"])[0]
+
+    graph_dev = build_graph(
+        prepared.edge_user, prepared.edge_item_node, prepared.edge_weight,
+        prepared.n_users, prepared.n_items, items_offset=True, device=dev,
+    )
+    g_layered = grad_of(make_loss_fn(cfg, DECAY), graph_dev)
+    ref = layered_grad_f64(params, graph_dev, cfg, users, pos, neg)
+    del graph_dev
+    g_batch = grad_of(
+        make_loss_fn(
+            cfg, DECAY,
+            batch_embed_fn=lambda p, fb_, u, po, ne: fast_batch_embeddings(
+                p, fb_, LAYERS, u, po, ne, edge_cap=EDGE_CAP
+            ),
+        ),
+        fb,
+    )
+    full_loss = make_loss_fn(cfg, DECAY, embed_fn=lambda p, fb_: fast_get_embedding(p, fb_, LAYERS))
+    loss, _ = full_loss(leaf, fb, users, pos, neg)
+    fwd_launches = SEGREDUCE.launches["float32"]
+    g_full = torch.autograd.grad(loss, leaf["embedding"])[0]
+    bwd_launches = SEGREDUCE.launches["float32"] - fwd_launches
+    assert bwd_launches >= 1, "fast_to_users' backward did not launch the segment reduce"
+    scale = ref.abs().max().item()
+    errs, margins = {}, {}
+    for name, g in (("batch", g_batch), ("full", g_full), ("layered_f32", g_layered)):
+        diff = (g.double() - ref).abs()
+        errs[name] = diff.max().item()
+        # Largest error as a share of what the check allows (< 1 passes).
+        margins[name] = (diff / (1e-5 * scale + 1e-4 * ref.abs())).max().item()
+        del diff
+    for g in (g_batch, g_full):
+        torch.testing.assert_close(g.double(), ref, rtol=1e-4, atol=1e-5 * scale)
+    path_launches["grad"] = read_launches()
+    phase(
+        7, "grad", t0,
+        f"max |ref grad| {scale:.3e} (layered, f64); max abs err / check margin: batched "
+        f"{errs['batch']:.3e} / {margins['batch']:.3f}, full {errs['full']:.3e} / "
+        f"{margins['full']:.3f}, layered f32 {errs['layered_f32']:.3e} / "
+        f"{margins['layered_f32']:.3f} (not checked); K1 f32 launches forward "
+        f"{fwd_launches} backward {bwd_launches}",
+    )
+    del leaf, ref, g_batch, g_full, g_layered, loss, svc, fb
+    torch.cuda.empty_cache()
+
+    # Step breakdown (the port of scripts/profile_step.py) on the main
+    # configuration's operators.
+    t0 = time.perf_counter()
+    reset_launches()
+    with torch.no_grad():
+        E_u = params["embedding"][: prepared.n_users]
+        x_items = params["embedding"][prepared.n_users :].float()
+        plan = fb16.fops.items_plan
+        E_u16 = E_u.to(torch.bfloat16)
+        msgs = tail_messages(E_u16, plan)
+        both = torch.cat([x_items, x_items], 1).to(torch.bfloat16)
+        parts = {
+            "fast_to_items": time_ms(lambda: fast_to_items(E_u, fb16.fops)),
+            "fast_to_users": time_ms(lambda: fast_to_users(x_items, fb16.fops)),
+            "B_ii_pair_matmul": time_ms(lambda: mm_f32(fb16.item_op, both), reps=10),
+            "K1_segreduce_bf16": time_ms(lambda: SEGREDUCE(E_u16, plan)),
+            "K3_stream_sum_bf16": time_ms(lambda: stream_sum(msgs)),
+        }
+        device_profile("fast_to_users", lambda: fast_to_users(x_items, fb16.fops))
+        del msgs, both, E_u16
+        val_buckets = build_eval_buckets(prepared.val, width_floor=256, device=dev)
+        emb0 = fast_get_embedding(params, fb16, LAYERS)
+        untrained_p, untrained_r = evaluate_bucketed(emb0, val_buckets, prepared.n_users, 20)
+        pop = torch.from_numpy(
+            np.bincount(prepared.edge_item_node - prepared.n_users, minlength=prepared.n_items)
+        ).float().to(dev)
+        pop_emb = torch.cat([torch.ones(prepared.n_users, 1, device=dev), pop[:, None]])
+        pop_p, pop_r = evaluate_bucketed(pop_emb, val_buckets, prepared.n_users, 20)
+        del emb0, pop_emb
+    step_params = {"embedding": params["embedding"].clone()}
+    adam = Adam(LR)
+    step_state = adam.init(step_params)
+    sdata = make_sampler_data(prepared.sampler, prepared.n_users, prepared.n_items, dev)
+    train_step, _ = make_train_fns(
+        cfg, adam, BATCH, DECAY,
+        batch_embed_fn=lambda p, fb_, u, po, ne: fast_batch_embeddings(
+            p, fb_, LAYERS, u, po, ne, edge_cap=EDGE_CAP
+        ),
+    )
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    one_step = lambda: train_step(step_params, step_state, fb16, sdata, gen)
+    parts["train_step"] = time_ms(one_step, reps=10)
+    device_profile("train step", one_step, top=10)
+    path_launches["breakdown"] = read_launches()
+    print(
+        "  step breakdown ms: " + " ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; K3/K1 {parts['K3_stream_sum_bf16'] / parts['K1_segreduce_bf16']:.3f}",
+        flush=True,
+    )
+    phase(
+        8, "breakdown", t0,
+        f"val R@20 untrained {untrained_r:.6f} popularity {pop_r:.6f} "
+        f"(P@20 {untrained_p:.6f} / {pop_p:.6f})",
+    )
+    del fb16, step_params, step_state, sdata, train_step, x_items, E_u
+    torch.cuda.empty_cache()
+
+    # Training path: train() and a resume, as a user runs them.
+    t0 = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        config = TrainConfig(
+            latent_dim=DIM, n_layers=LAYERS, batch_size=BATCH, lr=LR, decay=DECAY,
+            fast_bipartite="bf16", heavy_users=HEAVY_USERS, epochs=2,
+            checkpoint_dir=ckpt, async_saves=True, seed=args.seed,
+        )
+        result = train(prepared, config, device=dev)
+        hist = result.history
+        assert all(np.isfinite(h["loss"]) for h in hist), hist
+        assert hist[1]["loss"] < hist[0]["loss"], "loss did not fall between the epochs"
+        assert all(h["dropped_arcs"] == 0.0 for h in hist)
+        assert result.best_val_recall > untrained_r, (result.best_val_recall, untrained_r)
+        for name in (BEST_NAME, LAST_NAME):
+            leaves, meta = load_checkpoint(ckpt, name)
+            assert meta["num_leaves"] == 4 and leaves[0].shape == (cfg.num_nodes, DIM), meta
+        resumed = train(prepared, dataclasses.replace(config, epochs=3, resume=True), device=dev)
+        assert [h["epoch"] for h in resumed.history] == [2], resumed.history
+        with open(f"{ckpt}/train_log.jsonl") as f:
+            log = [json.loads(line) for line in f]
+    path_launches["train"] = read_launches()
+    builds = [r["item_op_s"] for r in log if "item_op_s" in r]
+    n_batch = N_EDGES_TRAIN // (BATCH * 40)
+    for h in hist + resumed.history:
+        print(
+            f"  epoch {h['epoch']}: loss {h['loss']:.6f} bpr {h['bpr_loss']:.6f} "
+            f"reg {h['reg_loss']:.6f} step_ms {h['train_s'] / n_batch * 1e3:.3f} "
+            f"train_s {h['train_s']:.3f} eval_s {h['eval_s']:.3f} epoch_s {h['epoch_s']:.3f} "
+            f"save_s {h.get('save_s', float('nan')):.3f} val R@20 {h['val_recall']:.6f}",
+            flush=True,
+        )
+    phase(
+        9, "train", t0,
+        f"B_ii builds {' '.join(f'{b:.2f}' for b in builds)} s; best val R@20 "
+        f"{result.best_val_recall:.6f} (untrained {untrained_r:.6f}, popularity {pop_r:.6f}) "
+        f"test R@20 {result.test_recall:.6f}; resumed test R@20 {resumed.test_recall:.6f}",
+    )
+
+    t0 = time.perf_counter()
+    totals = {name: sum(counts[name] for counts in path_launches.values()) for name in KERNELS}
     for row in rows:
-        row["launches"] = launches["float32" if row["name"] == "segreduce_f32" else "bfloat16"]
+        row["launches"] = totals[row["name"]]
+        row["launches_by_path"] = {p: counts[row["name"]] for p, counts in path_launches.items()}
         assert row["launches"] >= 1, f"{row['name']} was not launched on the main path"
+    assert path_launches["train"]["segreduce_bf16"] >= 1
     print(json.dumps({"kernels": rows}), flush=True)
-    phase(7, "kernels", time.perf_counter(), f"main-path launches {launches}")
+    phase(10, "kernels", t0, f"launches by path {path_launches}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

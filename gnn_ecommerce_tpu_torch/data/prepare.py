@@ -19,6 +19,9 @@ class CsrList:
     indptr: np.ndarray  # [R+1]
     values: np.ndarray  # [nnz]
 
+    def lengths(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
 
 @dataclasses.dataclass(frozen=True)
 class EvalSplit:

@@ -9,6 +9,11 @@ Here that is: TF32 off for every f32 matmul, and bf16 operands multiplied
 into an f32 result (exact products, f32 sums). Every entry point resolves
 its device through ``resolve_device``, which sets that policy once for the
 process; ``mm_f32`` only checks that it still holds.
+
+The bf16 product carries its own gradient (``_MmBf16``): ``torch.mm`` with
+``out_dtype`` has no derivative, and its backward is chosen to match JAX's
+gradient of ``dot(a_bf16, b_bf16, preferred_element_type=f32)``, which
+rounds each operand's cotangent to bf16.
 """
 from __future__ import annotations
 
@@ -38,6 +43,39 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ):
             raise RuntimeError("f32 matmuls must run without TF32")
         return a @ b
+    return _MmBf16.apply(a, b)
+
+
+def _mm_bf16_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+class _MmBf16(torch.autograd.Function):
+    """bf16 ``a @ b`` into f32, with the gradient JAX takes for it:
+    ``grad_b = bf16(aᵀ·g)`` and ``grad_a = bf16(g·bᵀ)``.
+
+    JAX multiplies the f32 cotangent ``g`` by the bf16 operand in f32 and
+    rounds the result to bf16. Here ``g`` is rounded to bf16 first, so the
+    backward is one bf16 product with an f32 result (tensor cores on the
+    card) instead of an f32 copy of the operand (12 GB for B_ii at full
+    scale) and a CUDA-core GEMM; the result is rounded to bf16 as in JAX.
+    The extra rounding of ``g`` (2^-9 relative per element) is held
+    against ``jax.grad`` in ``tests/test_torch_train_step.py``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_bf16_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g16 = g.to(a.dtype)
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_a = _mm_bf16_f32(g16, b.T).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            grad_b = _mm_bf16_f32(a.T, g16).to(b.dtype)
+        return grad_a, grad_b

@@ -1,7 +1,8 @@
 """LightGCN as plain functions over a params dict ``{"embedding": [N, D]}``.
 
-Counterpart of ``gnn_ecommerce_tpu/models/lightgcn.py`` (forward only): the
-config, the Xavier-uniform init and the layered alpha-weighted embedding.
+Counterpart of ``gnn_ecommerce_tpu/models/lightgcn.py``: the config, the
+Xavier-uniform init and the layered alpha-weighted embedding, differentiable
+through ``ops/propagate.py``.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Bipartite-factorized LightGCN forward (forward only).
+"""Bipartite-factorized LightGCN propagation, forward and backward.
 
 Counterpart of ``gnn_ecommerce_tpu/ops/bipartite.py``. Propagation
 alternates sides of the bipartite graph, so every item layer l ≥ 2 is
@@ -12,6 +12,13 @@ A forward is then two sparse products (``fast_to_items`` through the CUDA
 segment reduce, ``fast_to_users`` through the ELL) plus dense B_ii matmuls.
 An optional dense head of the heaviest users (``w_hi``) takes their arcs out
 of both sparse plans.
+
+The backward is symmetric: ``(Â_iu)ᵀ = Â_ui`` and ``B_iiᵀ = B_ii``, so the
+gradient of ``fast_to_items`` is ``fast_to_users`` and the other way round
+(``_FastToItems``/``_FastToUsers``), and the B_ii matmuls carry their own
+gradients (``device.mm_f32``). A training step reads the final embedding
+only at its batch: :func:`fast_batch_embeddings` replaces the full
+``fast_to_users`` by the batch users' own arcs.
 
 The graph arrays stay on the host (numpy) in :class:`BipartiteSplit`; the
 plans and operators built from them live on the device.
@@ -169,8 +176,7 @@ def build_fast_ops(
     )
 
 
-def fast_to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
-    """out_items = Â_iu · x_users: the CUDA segment reduce (+ the head)."""
+def _to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
     out = gather_segreduce(x_users, fops.items_plan, _DTYPES[fops.msgs_dtype])
     if fops.w_hi is not None:
         xh = x_users.index_select(0, fops.hi_ids).to(fops.w_hi.dtype)
@@ -178,8 +184,7 @@ def fast_to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
     return out
 
 
-def fast_to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
-    """out_users = Â_ui · x_items: the degree-binned ELL (+ the head)."""
+def _to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
     out = ell_apply(
         x_items,
         fops.users_ell,
@@ -189,6 +194,46 @@ def fast_to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
         heavy = mm_f32(fops.w_hi.T, x_items.to(fops.w_hi.dtype))
         out.index_add_(0, fops.hi_ids, heavy)
     return out
+
+
+class _FastToItems(torch.autograd.Function):
+    """Forward ``Â_iu · x``; backward ``Â_ui · g``: the ELL (bf16 gather in
+    bf16 mode) and the head's ``w_hiᵀ``, as the JAX pair's VJP is."""
+
+    @staticmethod
+    def forward(ctx, x_users, fops):
+        ctx.fops, ctx.dtype = fops, x_users.dtype
+        return _to_items(x_users, fops)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_users(g, ctx.fops).to(ctx.dtype), None
+
+
+class _FastToUsers(torch.autograd.Function):
+    """Forward ``Â_ui · x``; backward ``Â_iu · g``: the CUDA segment reduce
+    and the head's ``w_hi``."""
+
+    @staticmethod
+    def forward(ctx, x_items, fops):
+        ctx.fops, ctx.dtype = fops, x_items.dtype
+        return _to_users(x_items, fops)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_items(g, ctx.fops).to(ctx.dtype), None
+
+
+def fast_to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
+    """out_items = Â_iu · x_users [n_items, D] f32: the CUDA segment reduce
+    (+ the head); differentiable, its gradient is :func:`fast_to_users`."""
+    return _FastToItems.apply(x_users, fops)
+
+
+def fast_to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
+    """out_users = Â_ui · x_items [n_users, D] f32: the degree-binned ELL
+    (+ the head); differentiable, its gradient is :func:`fast_to_items`."""
+    return _FastToUsers.apply(x_items, fops)
 
 
 # ---------------------------------------------------------------------------
@@ -260,14 +305,25 @@ def build_item_operator(
 
 
 @dataclasses.dataclass(frozen=True)
+class UserCsr:
+    """The items → users arcs of every user on the device, a CSR over users
+    (``split.iu_*``): what :func:`fast_batch_embeddings` gathers per batch."""
+
+    indptr: torch.Tensor  # [n_users+1] int64
+    item: torch.Tensor  # [E] int64 local item ids
+    w: torch.Tensor  # [E] float32 normalized weights
+
+
+@dataclasses.dataclass(frozen=True)
 class FastBipartite:
     """Everything the fast forward needs: the host split, the dense 2-hop
-    operator and the sparse plans. ``build_seconds`` records the build's
-    phases (``item_op``, ``plans``)."""
+    operator, the sparse plans and the per-user CSR for batch forwards.
+    ``build_seconds`` records the build's phases (``item_op``, ``plans``)."""
 
     split: BipartiteSplit
     item_op: torch.Tensor  # [I, I] B_ii (f32 or bf16)
     fops: FastOps
+    user_csr: UserCsr
     build_seconds: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -292,6 +348,11 @@ def build_fast_bipartite(
     split = split_graph(graph)
     t0 = time.perf_counter()
     fops = build_fast_ops(split, msgs_dtype, heavy_users, heavy_dtype, dev)
+    user_csr = UserCsr(
+        indptr=torch.from_numpy(split.iu_indptr.astype(np.int64)).to(dev),
+        item=torch.from_numpy(split.iu_src_item.astype(np.int64)).to(dev),
+        w=torch.from_numpy(split.iu_w.astype(np.float32)).to(dev),
+    )
     t1 = time.perf_counter()
     item_op = build_item_operator(split, dtype=dtype, device=dev)
     if dev.type == "cuda":
@@ -301,6 +362,7 @@ def build_fast_bipartite(
         split=split,
         item_op=item_op,
         fops=fops,
+        user_csr=user_csr,
         build_seconds={"plans": t1 - t0, "item_op": t2 - t1},
     )
 
@@ -309,7 +371,8 @@ def item_chain_core(E_u, E_i, to_items_fn, B, num_layers: int, alpha):
     """The item-side layer chain. Returns (out_i, S_i): the final [n_items,
     D] item embedding and the alpha-weighted item source that to_users
     consumes. Two levels are computed per B pass, ``B @ [i^{l-2} |
-    i^{l-1}]``, so B streams once per pair of layers."""
+    i^{l-1}]``, so B streams once per pair of layers. Differentiable in
+    ``E_u`` and ``E_i`` (B carries no gradient)."""
     i_seq = [E_i.float(), to_items_fn(E_u)]
     D = E_i.shape[1]
     l = 2
@@ -328,12 +391,9 @@ def item_chain_core(E_u, E_i, to_items_fn, B, num_layers: int, alpha):
     return out_i, S_i
 
 
-def fast_get_embedding(
-    params: dict, fb: FastBipartite, num_layers: int, alpha=None
-) -> torch.Tensor:
-    """Alpha-weighted LightGCN embedding via the 2-SpMM factorization: an
-    exact restructure of the layered ``get_embedding``. Returns the unified
-    [n_users + n_items, D] final embedding in the table's dtype."""
+def _item_chain(params: dict, fb: FastBipartite, num_layers: int, alpha):
+    """(E_u, out_i, S_i, alpha) of :func:`item_chain_core` over the unified
+    table; ``alpha=None`` is uniform 1/(L+1)."""
     E = params["embedding"]
     if alpha is None:
         alpha = torch.full(
@@ -344,5 +404,60 @@ def fast_get_embedding(
     out_i, S_i = item_chain_core(
         E_u, E_i, functools.partial(fast_to_items, fops=fb.fops), fb.item_op, num_layers, alpha
     )
+    return E_u, out_i, S_i, alpha
+
+
+def fast_get_embedding(
+    params: dict, fb: FastBipartite, num_layers: int, alpha=None
+) -> torch.Tensor:
+    """Alpha-weighted LightGCN embedding via the 2-SpMM factorization: an
+    exact restructure of the layered ``get_embedding``. Returns the unified
+    [n_users + n_items, D] final embedding in the table's dtype."""
+    E_u, out_i, S_i, alpha = _item_chain(params, fb, num_layers, alpha)
     out_u = alpha[0] * E_u.float() + fast_to_users(S_i, fb.fops)
-    return torch.cat([out_u, out_i]).to(E.dtype)
+    return torch.cat([out_u, out_i]).to(params["embedding"].dtype)
+
+
+def fast_batch_embeddings(
+    params: dict,
+    fb: FastBipartite,
+    num_layers: int,
+    users: torch.Tensor,
+    pos: torch.Tensor,
+    neg: torch.Tensor,
+    edge_cap: int,
+    alpha=None,
+):
+    """Final embeddings for ONE BPR batch, the training step's fast path.
+
+    A BPR step reads ``out_u`` only at its B users, so ``to_users`` shrinks
+    from every arc to the batch users' own arcs: their CSR rows are gathered
+    into a fixed ``edge_cap`` buffer and summed by batch slot. The item chain
+    stays global (S_i feeds every user). Per step this removes the full
+    ``fast_to_users`` from the forward and, by the pair's symmetry, the full
+    ``fast_to_items`` from the backward.
+
+    Returns (u_out, p_out, n_out, dropped): [B, D] f32 final embeddings of
+    the batch users, positive and negative items (node-space ids, as
+    sampled), and a 0-d int64 tensor counting the batch arcs beyond
+    ``edge_cap`` (dropped; 0 in a healthy configuration). Nothing here waits
+    for the device.
+    """
+    E_u, out_i, S_i, alpha = _item_chain(params, fb, num_layers, alpha)
+    csr = fb.user_csr
+    B = users.shape[0]
+    start = csr.indptr[users]
+    deg = csr.indptr[users + 1] - start
+    cum = torch.cumsum(deg, 0)
+    total = cum[-1]
+    k = torch.arange(edge_cap, dtype=torch.int64, device=users.device)
+    slot = torch.searchsorted(cum, k, right=True).clamp(max=B - 1)
+    valid = k < total
+    e_idx = torch.where(valid, start[slot] + (k - (cum - deg)[slot]), 0)
+    w = torch.where(valid, csr.w[e_idx], 0.0)
+    msgs = S_i.index_select(0, csr.item[e_idx]) * w[:, None]
+    agg = torch.zeros(B, S_i.shape[1], dtype=torch.float32, device=S_i.device)
+    agg = agg.index_add(0, slot, msgs)
+    u_out = alpha[0] * E_u[users].float() + agg
+    n_users = fb.n_users
+    return u_out, out_i[pos - n_users], out_i[neg - n_users], (total - edge_cap).clamp(min=0)

@@ -93,7 +93,9 @@ class RecommenderService:
             items_offset=True,
             device="cpu",
         )
-        with torch.inference_mode():
+        # no_grad, not inference_mode: the operators may also carry a
+        # gradient (chip_smoke.py differentiates through this FastBipartite).
+        with torch.no_grad():
             self.fast_bipartite = build_fast_bipartite(graph, device=self.device)
         # Host-side CSR of train purchases per user (LOCAL item space), for
         # request-time exclusion masks.

@@ -1,0 +1,567 @@
+"""Training driver for one device: epoch loop with per-epoch validation,
+best-model checkpointing, structured logging and resume.
+
+Counterpart of ``gnn_ecommerce_tpu/train/driver.py`` on one device: the
+layered branch (``fast_bipartite="off"``) and the fast branches (``"f32"``
+exact, ``"bf16"`` the main configuration) with the batched train forward
+``fast_batch_embeddings``. As there:
+- the final test evaluation uses the best epoch's params;
+- every epoch's losses and metrics go to a JSONL log;
+- resume restores params, Adam state and the epoch counter from LAST, and
+  the on-disk BEST stays the bar a resumed run must beat;
+- the one-time operator build is retried once on an out-of-memory error.
+
+Checkpoints are written behind the training by one writer thread with a
+latest-wins mailbox (one slot per checkpoint name): a save copies the
+leaves once into pinned host tensors, waits for that copy (so the next step
+may update the params in place), and returns; a save that is superseded
+before the writer takes it is dropped unwritten. The JAX driver's banded
+snapshots and duty-cycled writer serve a slow remote link and are not
+ported (``TrainConfig.async_save_duty`` is accepted and unused).
+
+Deliberate difference: the JAX driver logs an epoch's record after its save
+block, so a save that raises loses that epoch from the JSONL
+(``driver.py:1003``). Here the record is logged whether or not the save
+raises; the error still propagates.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import threading
+import time
+from typing import Optional
+
+import torch
+
+from ..data.prepare import PreparedData
+from ..device import resolve_device
+from ..eval.evaluate import build_eval_buckets, evaluate_bucketed
+from ..graph.build import build_graph
+from ..models.lightgcn import LightGCNConfig, get_embedding, init_params
+from ..ops.bipartite import build_fast_bipartite, fast_batch_embeddings, fast_get_embedding
+from ..sampling.bpr import make_sampler_data
+from .checkpoint import BEST_NAME, LAST_NAME, load_checkpoint, restore_into, save_checkpoint
+from .step import Adam, AdamState, make_train_fns
+
+# Seconds to wait before the one retry of an operator build that ran out of
+# device memory.
+RETRY_WAIT_S = 10.0
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Hyperparameters; the JAX package's fields and defaults."""
+
+    latent_dim: int = 64
+    n_layers: int = 3
+    lr: float = 0.005
+    decay: float = 1e-4
+    batch_size: int = 1024
+    epochs: int = 20
+    k: int = 20
+    seed: int = 42
+    # Reference epoch: train_size // (batch_size * 40); None -> that, min 1.
+    batches_per_epoch: Optional[int] = None
+    checkpoint_dir: str = "model-checkpoints"
+    mask_mode: str = "neginf"
+    resume: bool = False
+    sample_replace: bool = True
+    log_path: Optional[str] = None  # default: <checkpoint_dir>/train_log.jsonl
+    # When set, epoch `profile_epoch` runs under torch.profiler and its
+    # Chrome trace is written into this directory.
+    profile_dir: Optional[str] = None
+    profile_epoch: int = 1
+    # Devices to train over. Only 1 is ported; the mesh branches wait for the
+    # multi-device slice.
+    mesh_devices: int = 1
+    partition: str = "gspmd"
+    # "off" (layered), "f32" (exact fast) or "bf16" (bf16 B_ii and messages).
+    fast_bipartite: str = "off"
+    # Arc capacity of the batched train forward; 0 -> max(64*batch, 8192).
+    batch_edge_cap: int = 0
+    # Dense heavy-user head size K of the fast plans (0 = off).
+    heavy_users: int = 0
+    async_saves: bool = True
+    # Save LAST every N epochs (always after the final epoch); 0 = only at
+    # the end. BEST is tracked in a device copy either way.
+    checkpoint_every: int = 1
+    # The JAX writer's duty cycle for a slow link; not ported, unused here.
+    async_save_duty: float = 0.5
+
+    def hyperparams(self) -> dict:
+        return {
+            "latent_dim": self.latent_dim,
+            "n_layers": self.n_layers,
+            "LR": self.lr,
+            "DECAY": self.decay,
+            "BATCH_SIZE": self.batch_size,
+        }
+
+
+@dataclasses.dataclass
+class TrainResult:
+    params: dict
+    history: list
+    best_epoch: int
+    best_val_precision: float
+    best_val_recall: float
+    test_precision: float
+    test_recall: float
+
+
+def _epoch_seed(seed: int, epoch: int) -> int:
+    """The sampler's seed for one epoch: a resumed run draws the batches an
+    uninterrupted run would have."""
+    return seed * 1_000_003 + 1000 + epoch
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _snapshot(params: dict, opt_state: AdamState) -> tuple[dict, AdamState]:
+    """One copy of every leaf into host memory (pinned for CUDA leaves),
+    awaited before returning, so the caller may update the originals."""
+
+    def one(x: torch.Tensor) -> torch.Tensor:
+        if not x.is_cuda:
+            return x.detach().clone()
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return buf.copy_(x.detach(), non_blocking=True)
+
+    snap = (
+        {k: one(v) for k, v in params.items()},
+        AdamState(
+            opt_state.step,
+            {k: one(v) for k, v in opt_state.exp_avg.items()},
+            {k: one(v) for k, v in opt_state.exp_avg_sq.items()},
+        ),
+    )
+    for v in params.values():
+        _sync(v.device)
+    return snap
+
+
+def _tree_bytes(params: dict, opt_state: AdamState) -> int:
+    tensors = [*params.values(), *opt_state.exp_avg.values(), *opt_state.exp_avg_sq.values()]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class CheckpointWriter:
+    """Write-behind checkpoint saves with a latest-wins mailbox.
+
+    ``save`` snapshots and returns at once; one daemon thread writes. A save
+    still in the mailbox when another of the same name arrives is replaced
+    (counted as coalesced); names saved by one call share one snapshot. An
+    error on the writer thread is raised by the next ``save`` or ``flush``.
+    """
+
+    def __init__(self, directory: str, hyperparams: dict):
+        self.directory, self.hyperparams = directory, hyperparams
+        self.stats = {
+            "requested": 0, "written": 0, "coalesced": 0,
+            "writer_busy_s": 0.0, "writer_bytes": 0,
+        }
+        self._cv = threading.Condition()
+        self._box: dict = {}  # name -> (snapshot id, (params, opt_state), meta kwargs)
+        self._busy = self._stop = False
+        self._seq = 0
+        self._errors: list = []
+        self._thread = threading.Thread(target=self._run, daemon=True, name="ckpt-writer")
+        self._thread.start()
+
+    def save(self, params: dict, opt_state: AdamState, targets: list) -> None:
+        self.raise_errors()
+        self.stats["requested"] += len(targets)
+        snap = _snapshot(params, opt_state)
+        with self._cv:
+            self._seq += 1
+            for name, kw in targets:
+                if name in self._box:
+                    self.stats["coalesced"] += 1
+                self._box[name] = (self._seq, snap, kw)
+            self._cv.notify_all()
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._box and not self._stop:
+                    self._cv.wait()
+                if not self._box:
+                    return
+                items = dict(self._box)
+                self._box.clear()
+                self._busy = True
+            t0 = time.perf_counter()
+            try:
+                groups: dict = {}
+                for name, (sid, snap, kw) in items.items():
+                    groups.setdefault(sid, (snap, []))[1].append((name, kw))
+                for snap, names in groups.values():
+                    self.stats["writer_bytes"] += _tree_bytes(*snap)
+                    for name, kw in names:
+                        save_checkpoint(
+                            self.directory, *snap, hyperparams=self.hyperparams,
+                            name=name, **kw,
+                        )
+                        self.stats["written"] += 1
+            except Exception as e:  # raised on the training thread by raise_errors
+                self._errors.append(e)
+            finally:
+                with self._cv:
+                    self.stats["writer_busy_s"] += time.perf_counter() - t0
+                    self._busy = False
+                    self._cv.notify_all()
+
+    def flush(self) -> None:
+        """Wait until every queued save is written; raise a writer error."""
+        with self._cv:
+            while self._box or self._busy:
+                self._cv.wait()
+        self.raise_errors()
+
+    def stop(self, timeout: float | None = None) -> None:
+        """Let the thread write what is queued, then end; join it."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout)
+
+    def raise_errors(self) -> None:
+        if self._errors:
+            errs = [f"{type(e).__name__}: {e}" for e in self._errors]
+            self._errors.clear()
+            raise RuntimeError(f"async checkpoint write(s) failed: {errs}")
+
+
+def train(
+    prepared: PreparedData,
+    config: TrainConfig,
+    verbose: bool = True,
+    device: str | torch.device = "cuda",
+) -> TrainResult:
+    """Train on ``device`` (``cuda`` unless the caller asks for the CPU;
+    raises without a card)."""
+    state: dict = {}
+    try:
+        return _train_impl(prepared, config, verbose, resolve_device(device), state)
+    finally:
+        writer = state.get("writer")
+        if writer is not None:
+            writer.stop(timeout=60.0)
+        log_f = state.get("log_f")
+        if log_f is not None:
+            log_f.close()
+
+
+def _train_impl(
+    prepared: PreparedData, config: TrainConfig, verbose: bool, dev: torch.device, _state: dict
+) -> TrainResult:
+    if config.mesh_devices != 1:
+        raise NotImplementedError(
+            f"mesh_devices={config.mesh_devices}: multi-device training waits for "
+            "the port's multi-device slice; train on one device (mesh_devices=1)"
+        )
+    if config.fast_bipartite not in ("off", "f32", "bf16"):
+        raise ValueError(f"fast_bipartite must be off, f32 or bf16: {config.fast_bipartite!r}")
+    t_setup0 = time.perf_counter()
+    os.makedirs(config.checkpoint_dir, exist_ok=True)
+    log_path = config.log_path or os.path.join(config.checkpoint_dir, "train_log.jsonl")
+    log_f = open(log_path, "a")
+    _state["log_f"] = log_f
+
+    def log(record: dict):
+        log_f.write(json.dumps(record) + "\n")
+        log_f.flush()
+        if verbose:
+            print(record.get("msg") or json.dumps(record), flush=True)
+
+    fast = config.fast_bipartite != "off"
+    n_users, n_items = prepared.n_users, prepared.n_items
+    # The fast branch builds its plans from the host graph; the layered
+    # branch propagates over the graph on the device.
+    graph = build_graph(
+        prepared.edge_user, prepared.edge_item_node, prepared.edge_weight,
+        n_users, n_items, items_offset=True, device="cpu" if fast else dev,
+    )
+    num_edges, num_arcs = len(prepared.edge_user), int(graph.src.shape[0])
+    sdata = make_sampler_data(prepared.sampler, n_users, n_items, dev)
+    val_buckets = build_eval_buckets(prepared.val, width_floor=256, device=dev)
+    test_buckets = build_eval_buckets(prepared.test, width_floor=256, device=dev)
+    t_graph_s = time.perf_counter() - t_setup0
+
+    cfg = LightGCNConfig(
+        num_nodes=graph.num_nodes, embedding_dim=config.latent_dim, num_layers=config.n_layers
+    )
+    params = init_params(torch.Generator().manual_seed(config.seed), cfg, device=dev)
+    optimizer = Adam(config.lr)
+    opt_state = optimizer.init(params)
+
+    start_epoch = 0
+    if config.resume and os.path.exists(
+        os.path.join(config.checkpoint_dir, LAST_NAME, "meta.json")
+    ):
+        leaves, meta = load_checkpoint(config.checkpoint_dir, LAST_NAME)
+        params, opt_state = restore_into(params, opt_state, leaves)
+        start_epoch = meta["epoch"] + 1
+        log({"msg": f"resumed from epoch {meta['epoch']} (next: {start_epoch})"})
+
+    n_batch = config.batches_per_epoch or max(1, num_edges // (config.batch_size * 40))
+
+    def build_with_retry(build, what: str):
+        """A one-time operator build, retried once after an out-of-memory
+        error with the allocator's cache emptied; a real shortage fails
+        again."""
+        try:
+            return build()
+        except torch.cuda.OutOfMemoryError as e:
+            log({"msg": f"{what}: out of device memory ({e}); retrying once in {RETRY_WAIT_S:.0f} s"})
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            time.sleep(RETRY_WAIT_S)
+            return build()
+
+    if fast:
+        bf16 = config.fast_bipartite == "bf16"
+        mode = "bfloat16" if bf16 else "float32"
+        t0 = time.perf_counter()
+        fb = build_with_retry(
+            lambda: build_fast_bipartite(
+                graph,
+                dtype=torch.bfloat16 if bf16 else torch.float32,
+                msgs_dtype=mode,
+                heavy_users=config.heavy_users,
+                heavy_dtype=mode,
+                device=dev,
+            ),
+            "fast-bipartite build",
+        )
+        _sync(dev)
+        op_gb = fb.item_op.numel() * fb.item_op.element_size() / 1e9
+        log({
+            "msg": (
+                f"fast bipartite operator built in {time.perf_counter() - t0:.1f}s "
+                f"({op_gb:.2f} GB {config.fast_bipartite})"
+            ),
+            "build_s": time.perf_counter() - t0,
+            "item_op_s": fb.build_seconds["item_op"],
+            "plans_s": fb.build_seconds["plans"],
+        })
+        graph = None  # superseded by fb
+        edge_cap = config.batch_edge_cap or max(64 * config.batch_size, 8192)
+        _, run_steps = make_train_fns(
+            cfg, optimizer, config.batch_size, config.decay,
+            sample_replace=config.sample_replace,
+            batch_embed_fn=lambda p, fb_, u, po, ne: fast_batch_embeddings(
+                p, fb_, cfg.num_layers, u, po, ne, edge_cap=edge_cap
+            ),
+        )
+        step_graph = fb
+        compute_embedding = lambda p: fast_get_embedding(p, fb, cfg.num_layers)
+    else:
+        _, run_steps = make_train_fns(
+            cfg, optimizer, config.batch_size, config.decay,
+            sample_replace=config.sample_replace,
+        )
+        step_graph = graph
+        compute_embedding = lambda p: get_embedding(p, graph, cfg)
+
+    def evaluate_split(p: dict, buckets) -> tuple[float, float]:
+        with torch.no_grad():
+            final_emb = compute_embedding(p)
+            return evaluate_bucketed(
+                final_emb, buckets, n_users, config.k, mask_mode=config.mask_mode
+            )
+
+    log({
+        "msg": (
+            f"training: {n_users} users x {n_items} items, {num_edges} edges, "
+            f"{n_batch} batches/epoch, dim {config.latent_dim}, {config.n_layers} layers, "
+            f"{dev}"
+        )
+    })
+
+    writer = None
+    if config.async_saves:
+        writer = CheckpointWriter(config.checkpoint_dir, config.hyperparams())
+        _state["writer"] = writer
+        log({"msg": "async saves: host snapshots (pinned for CUDA leaves), one writer thread"})
+
+    def do_save(params_t: dict, opt_t: AdamState, targets: list) -> None:
+        """Write (params_t, opt_t) to every (name, meta kwargs) of targets."""
+        if writer is None:
+            for name, kw in targets:
+                save_checkpoint(
+                    config.checkpoint_dir, params_t, opt_t,
+                    hyperparams=config.hyperparams(), name=name, **kw,
+                )
+        else:
+            writer.save(params_t, opt_t, targets)
+
+    def flush_saves() -> None:
+        if writer is not None:
+            writer.flush()
+
+    history = []
+    best_recall = best_precision = 0.0
+    best_epoch = -1
+    best_params = None  # device copy of the best epoch's params
+    best_dirty = False  # best_params newer than the on-disk BEST
+    best_meta_path = os.path.join(config.checkpoint_dir, BEST_NAME, "meta.json")
+    if start_epoch > 0 and os.path.exists(best_meta_path):
+        with open(best_meta_path) as f:
+            bmeta = json.load(f)
+        best_recall = float(bmeta.get("recall", 0.0))
+        best_precision = float(bmeta.get("precision", 0.0))
+        best_epoch = int(bmeta.get("epoch", -1))
+        log({
+            "msg": (
+                f"resume: on-disk BEST (epoch {best_epoch}, R@{config.k} "
+                f"{best_recall:.6f}) is the bar to beat"
+            )
+        })
+    log({
+        "msg": (
+            f"setup: {time.perf_counter() - t_setup0:.1f}s total "
+            f"(graph+sampler+eval buckets {t_graph_s:.1f}s)"
+        ),
+        "setup_s": time.perf_counter() - t_setup0,
+        "graph_setup_s": t_graph_s,
+    })
+
+    for epoch in range(start_epoch, config.epochs):
+        profiling = config.profile_dir and epoch == min(config.profile_epoch, config.epochs - 1)
+        generator = torch.Generator(device=dev).manual_seed(_epoch_seed(config.seed, epoch))
+        t0 = time.perf_counter()
+        with _profiler(dev) if profiling else contextlib.nullcontext() as prof:
+            params, opt_state, metrics = run_steps(
+                params, opt_state, step_graph, sdata, generator, n_batch
+            )
+            _sync(dev)
+        t_train = time.perf_counter() - t0
+        if profiling:
+            os.makedirs(config.profile_dir, exist_ok=True)
+            trace = os.path.join(config.profile_dir, f"train_epoch{epoch}.json")
+            prof.export_chrome_trace(trace)
+            log({"msg": f"profiler trace (epoch {epoch}) -> {trace}"})
+
+        precision, recall = evaluate_split(params, val_buckets)
+        t_total = time.perf_counter() - t0
+        rec = {
+            "epoch": epoch,
+            "bpr_loss": metrics["bpr_loss"],
+            "reg_loss": metrics["reg_loss"],
+            "loss": metrics["loss"],
+            "val_precision": precision,
+            "val_recall": recall,
+            "dropped_arcs": metrics["dropped_arcs"],
+            "train_s": t_train,
+            "eval_s": t_total - t_train,
+            "epoch_s": t_total,
+            # Arcs x layers x 3 that the reference's layered forward and
+            # backward would process in the same time (not measured work).
+            "ref_equiv_edges_per_s": num_arcs * cfg.num_layers * n_batch * 3 / max(t_train, 1e-9),
+        }
+        history.append(rec)
+
+        t_save0 = time.perf_counter()
+        try:
+            cur_targets = []  # saves of the current state share one snapshot
+            if recall > best_recall:
+                best_recall, best_precision, best_epoch = recall, precision, epoch
+                best_params = {k: v.clone() for k, v in params.items()}
+                best_dirty = True
+                if config.checkpoint_every == 1:
+                    cur_targets.append(
+                        (BEST_NAME, dict(epoch=epoch, precision=precision, recall=recall))
+                    )
+                    best_dirty = False
+            last_due = config.checkpoint_every > 0 and (epoch + 1) % config.checkpoint_every == 0
+            if last_due or epoch == config.epochs - 1:
+                cur_targets.append(
+                    (LAST_NAME, dict(epoch=epoch, precision=precision, recall=recall))
+                )
+            if cur_targets:
+                do_save(params, opt_state, cur_targets)
+                # Throttled mode: BEST improved in an earlier epoch of this
+                # window is persisted on the same cadence.
+                if best_dirty:
+                    do_save(
+                        best_params, opt_state,
+                        [(BEST_NAME, dict(epoch=best_epoch, precision=best_precision,
+                                          recall=best_recall))],
+                    )
+                    best_dirty = False
+                rec["save_s"] = time.perf_counter() - t_save0
+        finally:
+            log({
+                **rec,
+                "msg": (
+                    f"Epoch {epoch}: Val P@{config.k}: {precision:.6f}, "
+                    f"R@{config.k}: {recall:.6f}, Loss: ({metrics['bpr_loss']:.6f}, "
+                    f"{metrics['reg_loss']:.6f}, {metrics['loss']:.6f}) [{t_total:.2f}s]"
+                ),
+            })
+
+    if best_params is not None:
+        params = best_params
+        if best_dirty:
+            do_save(
+                params, opt_state,
+                [(BEST_NAME, dict(epoch=best_epoch, precision=best_precision, recall=best_recall))],
+            )
+    elif best_epoch >= 0:
+        # The resumed window never beat the on-disk BEST: test that one.
+        flush_saves()
+        leaves, _ = load_checkpoint(config.checkpoint_dir, BEST_NAME)
+        params, opt_state = restore_into(params, opt_state, leaves)
+    t_final0 = time.perf_counter()
+    test_precision, test_recall = evaluate_split(params, test_buckets)
+    log({
+        "msg": (
+            f"Best epoch ({best_epoch}): Val P@{config.k}: {best_precision:.6f}, "
+            f"R@{config.k}: {best_recall:.6f} | Test P@{config.k}: "
+            f"{test_precision:.6f}, R@{config.k}: {test_recall:.6f}"
+        ),
+        "best_epoch": best_epoch,
+        "test_precision": test_precision,
+        "test_recall": test_recall,
+        "test_eval_s": time.perf_counter() - t_final0,
+    })
+    t_flush0 = time.perf_counter()
+    flush_saves()
+    if writer is not None:
+        writer.stop()
+        s = writer.stats
+        log({
+            "msg": (
+                f"async saves: {s['written']} written, {s['coalesced']} coalesced of "
+                f"{s['requested']} requested; writer busy {s['writer_busy_s']:.1f}s for "
+                f"{s['writer_bytes'] / 1e9:.2f} GB; final flush "
+                f"{time.perf_counter() - t_flush0:.1f}s"
+            ),
+            "flush_s": time.perf_counter() - t_flush0,
+            **s,
+        })
+    return TrainResult(
+        params=params,
+        history=history,
+        best_epoch=best_epoch,
+        best_val_precision=best_precision,
+        best_val_recall=best_recall,
+        test_precision=test_precision,
+        test_recall=test_recall,
+    )
+
+
+def _profiler(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
