@@ -1,12 +1,11 @@
-"""Drive the PyTorch port's serving and training paths on one H100 and hold
-its CUDA kernels against their plain versions.
+"""Drive the PyTorch port's serving, training and probe paths on one H100
+and hold its CUDA kernels against their plain versions.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, one printed line each (plus detail lines):
   0 device    the card's name and power limit (nvidia-smi), TF32 off
-  1 build     nvcc builds csrc/segreduce.cu and csrc/stream_sum.cu for sm_90a,
-              both at once
+  1 build     nvcc builds the five csrc/*.cu kernels for sm_90a, all at once
   2 data      a full-scale synthetic corpus made from --seed: 1,552,888 users
               x 54,571 items, 10,157,407 unique edges of which 5% are held
               out (half val, half test), leaving 9,649,537 train edges; Zipf
@@ -38,9 +37,19 @@ Phases, one printed line each (plus detail lines):
   9 train     train() at dim 90 / 5 layers / batch 1024 / bf16 / 16,384
               head, 2 epochs of 235 batches with async checkpoints, then a
               resume from LAST for a third epoch
- 10 kernels   one JSON line of the port's kernels, with their launches on
-              the paths of phases 4-6, 7, 8 and 9 (each counted from 0 just
-              before the path and read just after)
+ 10 probes    the ports of the probe scripts: K2 (csrc/tile_segreduce.cu) in
+              f32 and bf16 over the to_items plan (10,157,407 arcs into
+              54,571 items, OT 512, CH 2048, D 80) and in bf16 over the
+              to_users plan (into 1,639,358 users), K4 (csrc/row_gather.cu)
+              on [1,639,358, 128] bf16 rows and [524,288, 8, 128] f32 tile
+              rows, K5 and K6 (csrc/lane_gather.cu) on an [80, 54,571] bf16
+              table with 10,153,984 indices, each against its plain version
+              (exact for the gathers) with kernel, plain and library times
+              and the bound; then, counted from 0, each probe module's main
+              at its full shapes
+ 11 kernels   one JSON line of the port's kernels, with their launches on
+              the paths of phases 4-6, 7, 8, 9 and 10 (each counted from 0
+              just before the path and read just after)
 The last line is {"ok": true, "device": {...}}. Any failed check raises.
 Without CUDA, or without the repository around this file, it exits non-zero
 and prints no result.
@@ -67,7 +76,16 @@ from gnn_ecommerce_tpu_torch.eval.evaluate import build_eval_buckets, evaluate_b
 from gnn_ecommerce_tpu_torch.graph.build import build_graph
 from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, get_embedding, init_params
 from gnn_ecommerce_tpu_torch.models.losses import bpr_loss, reg_loss
-from gnn_ecommerce_tpu_torch.ops._kernels import SEGREDUCE, STREAM_SUM, stream_sum, stream_sum_plain
+from gnn_ecommerce_tpu_torch.ops._kernels import (
+    ALL_KERNELS,
+    LANE_GATHER,
+    ROW_GATHER,
+    SEGREDUCE,
+    STREAM_SUM,
+    TILE_SEGREDUCE,
+    stream_sum,
+    stream_sum_plain,
+)
 from gnn_ecommerce_tpu_torch.ops.bipartite import (
     build_fast_bipartite,
     fast_batch_embeddings,
@@ -78,6 +96,19 @@ from gnn_ecommerce_tpu_torch.ops.bipartite import (
     split_heavy_users,
 )
 from gnn_ecommerce_tpu_torch.ops.spmm_fast import build_segreduce_plan, segreduce_plain
+from gnn_ecommerce_tpu_torch.probes import (
+    microbench_gather,
+    microbench_gather2,
+    pallas_gather_probe,
+    proto_segreduce,
+)
+from gnn_ecommerce_tpu_torch.probes.kernels import (
+    TILE_SEGREDUCE_RTOL,
+    lane_gather_plain,
+    row_gather_plain,
+    tile_segreduce_abs_sum,
+    tile_segreduce_plain,
+)
 from gnn_ecommerce_tpu_torch.sampling.bpr import make_sampler_data
 from gnn_ecommerce_tpu_torch.serve import BatchingRecommender, RecommenderService, make_server
 from gnn_ecommerce_tpu_torch.train import LAST_NAME, BEST_NAME, TrainConfig, load_checkpoint, train
@@ -100,20 +131,60 @@ KERNELS = {
     "segreduce_f32": (SEGREDUCE, "float32"),
     "segreduce_bf16": (SEGREDUCE, "bfloat16"),
     "stream_sum_bf16": (STREAM_SUM, "bfloat16"),
+    "tile_segreduce_f32": (TILE_SEGREDUCE, "float32"),
+    "tile_segreduce_bf16": (TILE_SEGREDUCE, "bfloat16"),
+    "row_gather_bf16_rows": (ROW_GATHER, "bfloat16"),
+    "row_gather_f32_tile_rows": (ROW_GATHER, "float32"),
+    "lane_gather_1xn": (LANE_GATHER, "1xn"),
+    "lane_gather_8x512": (LANE_GATHER, "8x512"),
 }
+# The to_users row shares K2's bf16 counter with the row above: its launches
+# are the ones made in these sections of probes/proto_segreduce.py's main,
+# and the row above keeps the rest.
+TO_USERS = "tile_segreduce_bf16_to_users"
+TO_USERS_SECTIONS = ("to_users_pallas_bf16", "to_users_pallas_bf16_ch1024")
 
 
 def phase(n: int, name: str, t0: float, detail: str = "") -> None:
     print(f"phase {n} {name}: {time.perf_counter() - t0:.2f} s {detail}".rstrip(), flush=True)
 
 
+def build_kernels() -> None:
+    """nvcc builds every kernel's source at once (one thread each); the
+    first failure is raised. Prints ptxas's register and spill lines."""
+    errors = []
+
+    def build(kernel):
+        try:
+            kernel.load()
+        except Exception as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    builders = [threading.Thread(target=build, args=(k,)) for k in ALL_KERNELS]
+    for b in builders:
+        b.start()
+    for b in builders:
+        b.join()
+    if errors:
+        raise errors[0]
+    for kernel in ALL_KERNELS:
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {kernel.STEM}:", line.strip())
+
+
 def reset_launches() -> None:
-    for kernel in (SEGREDUCE, STREAM_SUM):
+    for kernel in ALL_KERNELS:
         kernel.launches = {mode: 0 for mode in kernel.launches}
 
 
-def read_launches() -> dict:
-    return {name: kernel.launches[mode] for name, (kernel, mode) in KERNELS.items()}
+def read_launches(to_users: int = 0) -> dict:
+    """Each row's launches since the last reset; ``to_users`` of K2's bf16
+    launches go to the to_users row."""
+    counts = {name: kernel.launches[mode] for name, (kernel, mode) in KERNELS.items()}
+    counts["tile_segreduce_bf16"] -= to_users
+    counts[TO_USERS] = to_users
+    return counts
 
 
 def zipf_ranks(rng: np.random.Generator, n: int, m: int, a: float) -> np.ndarray:
@@ -355,6 +426,212 @@ def check_stream_sum(msgs: torch.Tensor) -> dict:
     }
 
 
+def kernel_row(name, source, replaces, err, kernel_ms, plain_ms, library_ms, bytes_once, ops,
+               **extra) -> dict:
+    """One row of the kernels line; the bound is the larger of the bytes
+    over the HBM rate and the f32 operations over the f32 peak."""
+    bytes_ms = bytes_once / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms, **extra,
+    }
+
+
+def check_tile_segreduce(name: str, plan: dict, t: dict, msgs: torch.Tensor, ot: int) -> dict:
+    """K2 against its plain version (the one-hot products) on a probe plan.
+    Tolerance: TILE_SEGREDUCE_RTOL (1e-6) of the largest output element's
+    Σ|msg| (both sum the same f32 values, or exact products of bf16 ones, in
+    different orders)."""
+    n_tiles, n_chunks = plan["n_tiles"], plan["n_chunks"]
+    args = (msgs, t["seg"], t["tile_map"], t["first"], n_tiles, ot)
+    out = TILE_SEGREDUCE(*args)
+    ref = tile_segreduce_plain(*args)
+    ch = msgs.shape[0] // n_chunks
+    rows = t["tile_map"].long().repeat_interleave(ch) * ot + t["seg"].long()
+    msgs_f = msgs.float()
+    abs_sum = tile_segreduce_abs_sum(msgs, t["seg"], t["tile_map"], n_tiles, ot)
+    scale = abs_sum.max().item()
+    diff = (out - ref).abs()
+    err = diff.max().item()
+    assert err <= TILE_SEGREDUCE_RTOL * scale, (name, err, scale)
+    # Largest error as a share of the tolerance at its own element's Σ|msg| (not checked).
+    elem_margin = (diff / (TILE_SEGREDUCE_RTOL * abs_sum).clamp_min(1e-30)).max().item()
+    del diff, abs_sum
+    ref64 = torch.zeros(ref.shape, dtype=torch.float64, device=msgs.device)
+    ref64.index_add_(0, rows, msgs_f.double())
+    f64_kernel = (out.double() - ref64).abs().max().item()
+    f64_plain = (ref.double() - ref64).abs().max().item()
+    del out, ref, ref64
+    kernel_ms = time_ms(lambda: TILE_SEGREDUCE(*args))
+    plain_ms = time_ms(lambda: tile_segreduce_plain(*args), reps=3, warmup=1)
+    library_ms = time_ms(
+        lambda: torch.zeros(n_tiles * ot, msgs.shape[1], device=msgs.device).index_add_(0, rows, msgs_f)
+    )
+    e_pad, d = msgs.shape
+    bytes_once = e_pad * d * msgs.element_size() + e_pad * 4 + n_chunks * 8 + n_tiles * ot * d * 4
+    row = kernel_row(
+        name, "gnn_ecommerce_tpu_torch/csrc/tile_segreduce.cu", "scripts/proto_segreduce.py:90",
+        err, kernel_ms, plain_ms, library_ms, bytes_once, e_pad * d,
+        e_pad=e_pad, pad_ratio=plan["pad_ratio"], n_chunks=n_chunks, n_tiles=n_tiles,
+        n_splits=TILE_SEGREDUCE.n_splits(n_tiles, n_chunks),
+    )
+    print(
+        f"  {name}: E_pad {e_pad} (pad {plan['pad_ratio']:.4f}) chunks {n_chunks} tiles {n_tiles} "
+        f"splits {row['n_splits']} max_abs_err {err:.3e} (max Σ|msg| {scale:.3e}, allowed "
+        f"{TILE_SEGREDUCE_RTOL * scale:.3e}; per-element margin {elem_margin:.3f}; vs f64: kernel "
+        f"{f64_kernel:.3e} plain {f64_plain:.3e}) kernel_ms {kernel_ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {library_ms:.4f} bytes {bytes_once} bound_ms "
+        f"{row['bound_ms']:.4f}",
+        flush=True,
+    )
+    return row
+
+
+def check_tile_segreduce_cases(dev: torch.device, seed: int) -> None:
+    """K2 on layouts the probe plans never make, against its plain version:
+    seg in any order and partly outside [0, OT), resets in the middle of a
+    tile, tiles with no chunk, split tiles, odd D. Same tolerance."""
+    rng = np.random.default_rng(seed)
+    for n_tiles, ot, ch, d, dtype in (
+        (3, 64, 96, 33, torch.bfloat16), (5, 128, 256, 80, torch.float32),
+        (40, 16, 32, 128, torch.float32), (1100, 16, 32, 8, torch.bfloat16),  # the last unsplit
+    ):
+        n_chunks = 7 * n_tiles
+        tile_map = np.sort(rng.integers(0, n_tiles, n_chunks)).astype(np.int32)
+        first = (rng.random(n_chunks) < 0.3).astype(np.int32)
+        seg = rng.integers(-2, ot + 2, n_chunks * ch).astype(np.int32)
+        msgs = torch.from_numpy(rng.standard_normal((n_chunks * ch, d)).astype(np.float32)).to(dev, dtype)
+        args = [torch.from_numpy(a).to(dev) for a in (seg, tile_map, first)]
+        out = TILE_SEGREDUCE(msgs, *args, n_tiles, ot)
+        ref = tile_segreduce_plain(msgs, *args, n_tiles, ot)
+        scale = msgs.float().abs().sum(0).max().item()
+        err = (out - ref).abs().max().item()
+        assert err <= TILE_SEGREDUCE_RTOL * scale, (n_tiles, ot, ch, d, err, scale)
+    torch.cuda.synchronize()
+
+
+def check_row_gather(name: str, table: torch.Tensor, idx: torch.Tensor, k: int, chunk: int) -> dict:
+    """K4 against ``table[idx]``: equal bytes."""
+    assert torch.equal(ROW_GATHER(table, idx, k_inflight=k, chunk=chunk), row_gather_plain(table, idx))
+    kernel_ms = time_ms(lambda: ROW_GATHER(table, idx, k_inflight=k, chunk=chunk))
+    plain_ms = time_ms(lambda: row_gather_plain(table, idx))
+    library_ms = time_ms(lambda: torch.index_select(table, 0, idx))
+    n, row_bytes = idx.numel(), table[0].numel() * table.element_size()
+    uniq = torch.unique(idx).numel()
+    # Each referenced row read once, the indices, the output written once.
+    bytes_once = uniq * row_bytes + n * 4 + n * row_bytes
+    bytes_gather = 2 * n * row_bytes + n * 4  # each gathered row read again
+    row = kernel_row(
+        name, "gnn_ecommerce_tpu_torch/csrc/row_gather.cu", "scripts/pallas_gather_probe.py:48",
+        0.0, kernel_ms, plain_ms, library_ms, bytes_once, 0,
+        rows=n, row_bytes=row_bytes, k_inflight=k, chunk=chunk,
+        gather_bound_ms=bytes_gather / HBM_BYTES_PER_S * 1e3,
+    )
+    print(
+        f"  {name}: table {tuple(table.shape)} {table.dtype} rows {n} unique {uniq} exact "
+        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+        f"bound_ms {row['bound_ms']:.4f} gather_bound_ms {row['gather_bound_ms']:.4f} "
+        f"({n * row_bytes * 2 / kernel_ms / 1e9:.1f} TB/s moved)",
+        flush=True,
+    )
+    return row
+
+
+def check_lane_gather(name: str, replaces: str, tab: torch.Tensor, idx: torch.Tensor, layout: str) -> dict:
+    """K5 or K6 against ``tab[:, idx]``: equal bytes."""
+    assert torch.equal(LANE_GATHER(tab, idx, layout), lane_gather_plain(tab, idx))
+    kernel_ms = time_ms(lambda: LANE_GATHER(tab, idx, layout))
+    plain_ms = time_ms(lambda: lane_gather_plain(tab, idx))
+    flat = idx.reshape(-1)
+    library_ms = time_ms(lambda: torch.index_select(tab, 1, flat))
+    d, n = tab.shape[0], flat.numel()
+    uniq = torch.unique(flat).numel()
+    bytes_once = uniq * d * 2 + n * 4 + d * n * 2
+    row = kernel_row(
+        name, "gnn_ecommerce_tpu_torch/csrc/lane_gather.cu", replaces,
+        0.0, kernel_ms, plain_ms, library_ms, bytes_once, 0, n=n, index_shape=list(idx.shape),
+    )
+    print(
+        f"  {name}: tab {tuple(tab.shape)} idx {tuple(idx.shape)} exact kernel_ms {kernel_ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {row['bound_ms']:.4f}",
+        flush=True,
+    )
+    return row
+
+
+def probe_kernel_rows(dev: torch.device, seed: int) -> list:
+    """K2, K4, K5 and K6 against their plain versions at the probes' full
+    shapes, with times and bounds: one kernels-line row each."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E, NU, NI, D = proto_segreduce.E, proto_segreduce.NU, proto_segreduce.NI, proto_segreduce.D
+    check_tile_segreduce_cases(dev, seed)
+    item_sorted, user_src, w, user_sorted, item_src = proto_segreduce.arcs(rng, E, NU, NI)
+    rows = []
+    plan = proto_segreduce.build_plan(user_src, item_sorted, w, NI, 512, 2048)
+    t = proto_segreduce.plan_tensors(plan, dev)
+    T = torch.randn(NU, D, generator=gen, device=dev)
+    for dtype, name in ((torch.float32, "tile_segreduce_f32"), (torch.bfloat16, "tile_segreduce_bf16")):
+        rows.append(check_tile_segreduce(name, plan, t, proto_segreduce.messages(T, t, dtype), 512))
+    plan = proto_segreduce.build_plan(item_src, user_sorted, w, NU, 512, 2048)
+    t = proto_segreduce.plan_tensors(plan, dev)
+    T = torch.randn(NI, D, generator=gen, device=dev)
+    msgs = proto_segreduce.messages(T, t, torch.bfloat16)
+    rows.append(check_tile_segreduce(TO_USERS, plan, t, msgs, 512))
+    del plan, t, T, msgs
+    torch.cuda.empty_cache()
+
+    s = pallas_gather_probe.shapes(dev)
+    table = torch.randn(s["n_rows"], 128, generator=gen, device=dev, dtype=torch.bfloat16)
+    idx = torch.randint(0, s["n_rows"], (s["n_gather"],), generator=gen, device=dev, dtype=torch.int32)
+    rows.append(check_row_gather("row_gather_bf16_rows", table, idx, 8, 1024))
+    table = torch.randn(s["n_rows_t"], 8, 128, generator=gen, device=dev)
+    idx = torch.randint(0, s["n_rows_t"], (s["n_gather_t"],), generator=gen, device=dev, dtype=torch.int32)
+    rows.append(check_row_gather("row_gather_f32_tile_rows", table, idx, 8, 1024))
+    del table, idx
+    torch.cuda.empty_cache()
+
+    tile = microbench_gather.TILE
+    idx = torch.from_numpy(item_src[: E // tile * tile]).to(dev)
+    tab = torch.randn(80, NI, generator=gen, device=dev, dtype=torch.bfloat16)
+    rows.append(check_lane_gather(
+        "lane_gather_1xn", "scripts/microbench_gather.py:208", tab, idx.reshape(1, -1), "1xn"))
+    rows.append(check_lane_gather(
+        "lane_gather_8x512", "scripts/microbench_gather2.py:134", tab, idx.reshape(-1, 512), "8x512"))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_probe_mains(dev: torch.device, reps: int = 2) -> dict:
+    """Each probe module's main at its full shapes, failures raised; one
+    summary line each (ms by key) and its JSON. Returns the results by
+    module name. microbench_gather2 takes the sections it repeats from
+    microbench_gather's results."""
+    out = {}
+    for module in (proto_segreduce, pallas_gather_probe, microbench_gather, microbench_gather2):
+        t0 = time.perf_counter()
+        extra = {"shared": out["microbench_gather"]} if module is microbench_gather2 else {}
+        res = module.main(device=dev, reps=reps, **extra)
+        times = {
+            k: (v["ms"] if isinstance(v, dict) else v)
+            for k, v in res.items()
+            if (isinstance(v, dict) and "ms" in v) or k.endswith("_ms")
+        }
+        name = module.__name__.rsplit(".", 1)[1]
+        print(
+            f"  probe {name}: {time.perf_counter() - t0:.1f} s; ms "
+            + " ".join(f"{k} {v:.4f}" for k, v in times.items()),
+            flush=True,
+        )
+        print(f"  probe {name} json: {json.dumps(res)}", flush=True)
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
+
+
 def plain_topk(emb, ids, prepared, k):
     """Reference answer: full scores, purchased items masked, torch.topk."""
     n_users = prepared.n_users
@@ -469,26 +746,8 @@ def main(argv=None) -> int:
     phase(0, "device", t0, f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    errors = []
-
-    def build(kernel):
-        try:
-            kernel.load()
-        except Exception as e:  # re-raised below, on the main thread
-            errors.append(e)
-
-    builders = [threading.Thread(target=build, args=(k,)) for k in (SEGREDUCE, STREAM_SUM)]
-    for b in builders:
-        b.start()
-    for b in builders:
-        b.join()
-    if errors:
-        raise errors[0]
+    build_kernels()
     phase(1, "build", t0)
-    for kernel in (SEGREDUCE, STREAM_SUM):
-        for line in kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {kernel.STEM}:", line.strip())
 
     t0 = time.perf_counter()
     prepared = make_prepared(args.seed, N_USERS, N_ITEMS, N_EDGES)
@@ -777,15 +1036,31 @@ def main(argv=None) -> int:
         f"test R@20 {result.test_recall:.6f}; resumed test R@20 {resumed.test_recall:.6f}",
     )
 
+    # Probes (the ports of the gather and segment-reduce probe scripts):
+    # K2, K4, K5 and K6 against their plain versions at the probes' full
+    # shapes, then every count from 0 and each probe's main as a user runs it.
     t0 = time.perf_counter()
-    totals = {name: sum(counts[name] for counts in path_launches.values()) for name in KERNELS}
+    del result, resumed
+    torch.cuda.empty_cache()
+    rows += probe_kernel_rows(dev, args.seed)
+    reset_launches()
+    probe_results = run_probe_mains(dev)
+    to_users = sum(
+        probe_results["proto_segreduce"]["launches"][s].get("tile_segreduce.bfloat16", 0)
+        for s in TO_USERS_SECTIONS
+    )
+    path_launches["probes"] = read_launches(to_users)
+    phase(10, "probes", t0)
+
+    t0 = time.perf_counter()
+    totals = {name: sum(counts[name] for counts in path_launches.values()) for name in (*KERNELS, TO_USERS)}
     for row in rows:
         row["launches"] = totals[row["name"]]
         row["launches_by_path"] = {p: counts[row["name"]] for p, counts in path_launches.items()}
         assert row["launches"] >= 1, f"{row['name']} was not launched on the main path"
     assert path_launches["train"]["segreduce_bf16"] >= 1
     print(json.dumps({"kernels": rows}), flush=True)
-    phase(10, "kernels", t0, f"launches by path {path_launches}; total {time.perf_counter() - t_start:.1f} s")
+    phase(11, "kernels", t0, f"launches by path {path_launches}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

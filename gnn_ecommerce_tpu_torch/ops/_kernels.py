@@ -160,8 +160,188 @@ class StreamSumKernel(_Kernel):
         return out
 
 
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"the {name} kernel takes CUDA tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: every tensor must be on one device")
+
+
+class TileSegReduceKernel(_Kernel):
+    """``csrc/tile_segreduce.cu`` (K2): the probe's tiled segment reduce over
+    a chunk plan into [n_tiles·OT, D] f32. Modes ``"float32"`` and
+    ``"bfloat16"`` (the messages' type); one call is one tile pass, plus one
+    combine pass when a tile's chunks are split over several blocks."""
+
+    STEM = "tile_segreduce"
+    MODES = ("float32", "bfloat16")
+    MAX_DIM = 128
+    MAX_SHARED_BYTES = 232_448  # the most dynamic shared memory a block can have
+    # Blocks of the tile pass to aim for: few tiles are split over up to
+    # this many blocks. A function of the plan's shape only, so the order of
+    # the sums (and the result) does not depend on the card.
+    TARGET_BLOCKS = 1024
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for fn in (lib.tile_segreduce_f32, lib.tile_segreduce_bf16):
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i32, ptr, ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
+        lib.tile_segreduce_shared_bytes.argtypes = [i32, i32, i32]
+        lib.tile_segreduce_shared_bytes.restype = i64
+
+    def n_splits(self, n_tiles: int, n_chunks: int) -> int:
+        """Blocks per tile: enough for about TARGET_BLOCKS, at most the mean
+        chunks per tile."""
+        if n_tiles == 0:
+            return 1
+        return max(1, min(-(-self.TARGET_BLOCKS // n_tiles), n_chunks // n_tiles))
+
+    def __call__(self, msgs, seg, tile_map, first, n_tiles: int, ot: int) -> torch.Tensor:
+        modes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+        _check_cuda("tile_segreduce", msgs, seg, tile_map, first)
+        if msgs.dtype not in modes:
+            raise TypeError(f"tile_segreduce msgs must be f32 or bf16, got {msgs.dtype}")
+        if any(t.dtype != torch.int32 for t in (seg, tile_map, first)):
+            raise TypeError("tile_segreduce seg, tile_map and first must be int32")
+        if msgs.dim() != 2 or not all(t.is_contiguous() for t in (msgs, seg, tile_map, first)):
+            raise ValueError("tile_segreduce takes contiguous msgs [E_pad, D] and int32 arrays")
+        e_pad, d = msgs.shape
+        n_chunks = tile_map.numel()
+        if first.numel() != n_chunks or seg.numel() != e_pad:
+            raise ValueError("tile_segreduce: seg must have E_pad entries, first n_chunks")
+        if n_chunks == 0 or e_pad % n_chunks:
+            raise ValueError(f"E_pad {e_pad} is not a whole number of {n_chunks} chunks")
+        ch = e_pad // n_chunks
+        if not 0 < d <= self.MAX_DIM:
+            raise ValueError(f"tile_segreduce supports 1 <= D <= {self.MAX_DIM}, got {d}")
+        mode = modes[msgs.dtype]
+        lib = self.load()
+        shared = lib.tile_segreduce_shared_bytes(ch, ot, d)
+        if shared > self.MAX_SHARED_BYTES:
+            raise ValueError(
+                f"tile_segreduce: OT={ot}, CH={ch}, D={d} needs {shared} bytes of shared memory"
+            )
+        splits = self.n_splits(n_tiles, n_chunks)
+        out = torch.empty(n_tiles * ot, d, dtype=torch.float32, device=msgs.device)
+        partial = reset = None
+        if splits > 1:
+            partial = torch.empty(n_tiles * splits * ot * d, dtype=torch.float32, device=msgs.device)
+            reset = torch.empty(n_tiles * splits, dtype=torch.int32, device=msgs.device)
+        fn = lib.tile_segreduce_bf16 if mode == "bfloat16" else lib.tile_segreduce_f32
+        with torch.cuda.device(msgs.device):
+            rc = fn(
+                msgs.data_ptr(), seg.data_ptr(), tile_map.data_ptr(), first.data_ptr(),
+                n_chunks, ch, ot, d, n_tiles, splits,
+                None if partial is None else partial.data_ptr(),
+                None if reset is None else reset.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"tile_segreduce launch failed: cudaError {rc}")
+        self.launches[mode] += 1
+        return out
+
+
+class RowGatherKernel(_Kernel):
+    """``csrc/row_gather.cu`` (K4): ``out[j] = table[idx[j]]`` for rows of a
+    multiple of 16 bytes, ``k_inflight`` loads per lane in flight, blocks of
+    ``chunk`` rows. The kernel moves bytes; the mode is the table's type
+    (``"bfloat16"``: the probe's [N, 128] rows; ``"float32"``: its
+    [N, 8, 128] tile rows)."""
+
+    STEM = "row_gather"
+    MODES = ("bfloat16", "float32")
+    K_INFLIGHT = (4, 8, 16)  # the probe's
+    MAX_CHUNK = 12_288
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.row_gather.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr, ptr]
+        lib.row_gather.restype = ctypes.c_int
+
+    def __call__(self, table, idx, k_inflight: int = 8, chunk: int = 1024) -> torch.Tensor:
+        modes = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+        _check_cuda("row_gather", table, idx)
+        if table.dtype not in modes or idx.dtype != torch.int32:
+            raise TypeError(f"row_gather takes a bf16 or f32 table and int32 indices, got "
+                            f"{table.dtype} / {idx.dtype}")
+        if table.dim() < 2 or not table.is_contiguous() or idx.dim() != 1 or not idx.is_contiguous():
+            raise ValueError("row_gather takes a contiguous [N, ...] table and [n] indices")
+        row_bytes = table[0].numel() * table.element_size()
+        if row_bytes % 16 or table.data_ptr() % 16:
+            raise ValueError(f"row_gather rows must be 16-byte multiples, got {row_bytes} B")
+        if k_inflight not in self.K_INFLIGHT or not 0 < chunk <= self.MAX_CHUNK:
+            raise ValueError(f"row_gather: k_inflight in {self.K_INFLIGHT}, "
+                             f"0 < chunk <= {self.MAX_CHUNK}")
+        n = idx.numel()
+        if n % chunk:
+            raise ValueError(f"row_gather needs n % chunk == 0, got {n} % {chunk}")
+        mode = modes[table.dtype]
+        lib = self.load()
+        out = torch.empty((n, *table.shape[1:]), dtype=table.dtype, device=table.device)
+        with torch.cuda.device(table.device):
+            rc = lib.row_gather(
+                table.data_ptr(), idx.data_ptr(), n, row_bytes, k_inflight, chunk,
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"row_gather launch failed: cudaError {rc}")
+        self.launches[mode] += 1
+        return out
+
+
+class LaneGatherKernel(_Kernel):
+    """``csrc/lane_gather.cu``: ``out[r, j] = tab[r, idx[j]]`` for a [d, ni]
+    bf16 table. One CUDA kernel serves K5 (indices [1, n], mode ``"1xn"``)
+    and K6 (indices [n/512, 512], mode ``"8x512"``): both layouts are the
+    same contiguous index stream. The modes count K5's and K6's launches."""
+
+    STEM = "lane_gather"
+    MODES = ("1xn", "8x512")
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.lane_gather_bf16.argtypes = [ptr, i64, ctypes.c_int, ptr, i64, ptr, ptr]
+        lib.lane_gather_bf16.restype = ctypes.c_int
+
+    def __call__(self, tab, idx, layout: str) -> torch.Tensor:
+        if layout not in self.MODES:
+            raise ValueError(f"lane_gather layout must be one of {self.MODES}, got {layout!r}")
+        _check_cuda("lane_gather", tab, idx)
+        if tab.dtype != torch.bfloat16 or idx.dtype != torch.int32:
+            raise TypeError(f"lane_gather takes a bf16 table and int32 indices, got "
+                            f"{tab.dtype} / {idx.dtype}")
+        if tab.dim() != 2 or not tab.is_contiguous() or not idx.is_contiguous():
+            raise ValueError("lane_gather takes a contiguous [d, ni] table and contiguous indices")
+        d, ni = tab.shape
+        n = idx.numel()
+        if n % 8 or idx.data_ptr() % 16:
+            raise ValueError(f"lane_gather takes a 16-byte aligned multiple of 8 indices, got {n}")
+        lib = self.load()
+        out = torch.empty(d, n, dtype=torch.bfloat16, device=tab.device)
+        with torch.cuda.device(tab.device):
+            rc = lib.lane_gather_bf16(
+                tab.data_ptr(), ni, d, idx.data_ptr(), n, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"lane_gather launch failed: cudaError {rc}")
+        self.launches[layout] += 1
+        return out
+
+
 SEGREDUCE = SegReduceKernel()
 STREAM_SUM = StreamSumKernel()
+TILE_SEGREDUCE = TileSegReduceKernel()
+ROW_GATHER = RowGatherKernel()
+LANE_GATHER = LaneGatherKernel()
+ALL_KERNELS = (SEGREDUCE, STREAM_SUM, TILE_SEGREDUCE, ROW_GATHER, LANE_GATHER)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches so far, keyed ``"<stem>.<mode>"``."""
+    return {f"{k.STEM}.{mode}": n for k in ALL_KERNELS for mode, n in k.launches.items()}
 
 
 def stream_sum_plain(msgs: torch.Tensor) -> torch.Tensor:
