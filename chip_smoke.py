@@ -15,9 +15,14 @@ Phases, one printed line each (plus detail lines):
   3 kernel    each kernel against its plain version on the main path's
               inputs: the segment reduce (K1) in f32 over all user->item arcs
               (the service's run) and in bf16 over the tail left by the
-              16,384-user head (the main configuration's run); the stream sum
-              (K3) over K1's bf16 tail messages; kernel, plain and library
-              times and the bound
+              16,384-user head (the main configuration's run) on the table
+              cast into 16-byte rows by K1's cast kernel, each launched twice
+              for equal bytes, with per-pass device times; K1 on edge-case
+              plans (empty rows, a 2,000-chunk hub) at D 1 to 256 on f32,
+              bf16 and padded bf16 tables, and through gather_segreduce on
+              expanded, transposed and misaligned f32 tables; the stream
+              sum (K3) over K1's bf16 tail messages; kernel, plain and
+              library times and the bound
   4 forward   the RecommenderService (dim 90, 5 layers, f32) propagates once
               through the fast forward; its cache is held against the layered
               get_embedding on the card; forward time and a profiler breakdown
@@ -95,7 +100,14 @@ from gnn_ecommerce_tpu_torch.ops.bipartite import (
     split_graph,
     split_heavy_users,
 )
-from gnn_ecommerce_tpu_torch.ops.spmm_fast import build_segreduce_plan, segreduce_plain
+from gnn_ecommerce_tpu_torch.ops.spmm_fast import (
+    bf16_row_width,
+    bf16_rows,
+    bf16_rows_plain,
+    build_segreduce_plan,
+    gather_segreduce,
+    segreduce_plain,
+)
 from gnn_ecommerce_tpu_torch.probes import (
     microbench_gather,
     microbench_gather2,
@@ -130,6 +142,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 KERNELS = {
     "segreduce_f32": (SEGREDUCE, "float32"),
     "segreduce_bf16": (SEGREDUCE, "bfloat16"),
+    "segreduce_cast_bf16": (SEGREDUCE, "cast_bf16"),
     "stream_sum_bf16": (STREAM_SUM, "bfloat16"),
     "tile_segreduce_f32": (TILE_SEGREDUCE, "float32"),
     "tile_segreduce_bf16": (TILE_SEGREDUCE, "bfloat16"),
@@ -143,6 +156,9 @@ KERNELS = {
 # and the row above keeps the rest.
 TO_USERS = "tile_segreduce_bf16_to_users"
 TO_USERS_SECTIONS = ("to_users_pallas_bf16", "to_users_pallas_bf16_ch1024")
+# Widths of K1's edge cases: with f32, bf16 and padded bf16 tables they take
+# every (vector width, loads per arc) instance of csrc/segreduce.cu.
+K1_CASE_DIMS = (1, 33, 62, 64, 90, 127, 250, 255, 256)
 
 
 def phase(n: int, name: str, t0: float, detail: str = "") -> None:
@@ -310,11 +326,59 @@ def device_profile(label: str, fn, top: int = 6) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} {e.key[:90]}")
 
 
+def pass_times(fn, calls: int = 5) -> dict:
+    """Mean device ms per call of each CUDA kernel that ``fn`` launches,
+    by kernel name, over ``calls`` calls under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {
+        e.key: e.self_device_time_total / 1e3 / calls
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    }
+
+
+def plan_stats(plan) -> dict:
+    """The chunk layout's shape: chunks, the most chunks (and arcs) of one
+    row, and the rows that have more than one chunk."""
+    per_row = torch.diff(plan.row_chunk_ptr)
+    arcs = torch.bincount(plan.dst, minlength=plan.n_out)
+    return {
+        "n_chunks": plan.n_chunks,
+        "max_chunks_per_row": int(per_row.max()),
+        "max_arcs_per_row": int(arcs.max()),
+        "multi_chunk_rows": int((per_row > 1).sum()),
+        "empty_rows": int((arcs == 0).sum()),
+        "long_rows": plan.n_long,
+    }
+
+
+def k1_passes(name: str, fn) -> dict:
+    """K1's passes' device times under torch.profiler."""
+    passes = {}
+    for kname, ms in pass_times(fn).items():
+        short = "combine" if "combine" in kname else "chunks" if "chunks" in kname else kname[:60]
+        passes[short] = ms
+    print(f"  {name} passes ms: " + " ".join(f"{k} {v:.4f}" for k, v in passes.items()), flush=True)
+    return passes
+
+
 def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
-    """K1 against its plain version on the same inputs, then times."""
+    """K1 against its plain version on the same inputs, the same bytes from
+    a second launch, then times."""
     out = SEGREDUCE(table, plan)
+    again = SEGREDUCE(table, plan)
     ref = segreduce_plain(table, plan)
     torch.cuda.synchronize()
+    assert torch.equal(out, again), f"{name}: two launches gave different bytes"
+    del again
     scale = ref.abs().max().item()
     err = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
@@ -342,6 +406,8 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
     flops = 2 * n_arcs * d
     bound_ms = max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
     kernel_ms = time_ms(lambda: SEGREDUCE(table, plan))
+    # Five calls back to back: the launch gap of one call is hidden.
+    back_to_back_ms = time_ms(lambda: [SEGREDUCE(table, plan) for _ in range(5)]) / 5
     plain_ms = time_ms(lambda: segreduce_plain(table, plan))
     crow = torch.zeros(plan.n_out + 1, dtype=torch.int64, device=table.device)
     crow[1:] = torch.cumsum(torch.bincount(plan.dst, minlength=plan.n_out), 0)
@@ -349,12 +415,27 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
         crow, plan.src.long(), plan.w, size=(plan.n_out, table.shape[0])
     )
     dense = table.float()
-    library_ms = time_ms(lambda: torch.sparse.mm(csr, dense))
+    library_f32_ms = time_ms(lambda: torch.sparse.mm(csr, dense))
+    library_ms, library_call = library_f32_ms, "torch.sparse.mm, f32 CSR and table"
+    del dense
+    if table.dtype != torch.float32:
+        # The same bytes as the kernel reads: a bf16 CSR times the bf16 table.
+        csr16 = torch.sparse_csr_tensor(
+            crow, plan.src.long(), plan.w.to(table.dtype), size=(plan.n_out, table.shape[0])
+        )
+        dense16 = table.contiguous()
+        library_ms = time_ms(lambda: torch.sparse.mm(csr16, dense16))
+        library_call = f"torch.sparse.mm, {table.dtype} CSR and table"
+        del csr16, dense16
+    print(f"  {name} plan: {json.dumps(plan_stats(plan))} vector width {SEGREDUCE.vector_width(table)} "
+          f"row stride {table.stride(0)}", flush=True)
+    passes = k1_passes(name, lambda: SEGREDUCE(table, plan))
     print(
         f"  {name}: arcs {n_arcs} chunks {plan.n_chunks} rows_read {rows_read} "
         f"max_abs_err {err:.3e} (max |ref| {scale:.3e}, check margin {margin:.3f}; "
-        f"vs f64: kernel {f64_kernel:.3e} plain {f64_plain:.3e}) "
-        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+        f"vs f64: kernel {f64_kernel:.3e} plain {f64_plain:.3e}) equal bytes on a second launch; "
+        f"kernel_ms {kernel_ms:.4f} back_to_back_ms {back_to_back_ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} ({library_call}; f32 {library_f32_ms:.4f}) "
         f"bytes_once {bytes_once} bytes_gather {bytes_gather} bound_ms {bound_ms:.4f} "
         f"gather_bound_ms {bytes_gather / HBM_BYTES_PER_S * 1e3:.4f}",
         flush=True,
@@ -371,9 +452,114 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_once / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations",
         "library_ms": library_ms,
+        "library_call": library_call,
+        "library_f32_ms": library_f32_ms,
+        "back_to_back_ms": back_to_back_ms,
+        "pass_ms": passes,
         "gather_bound_ms": bytes_gather / HBM_BYTES_PER_S * 1e3,
         "arcs": n_arcs,
     }
+
+
+def check_cast(table: torch.Tensor) -> dict:
+    """K1's padded bf16 cast against its plain version (equal bytes, pad
+    columns included), then times; library_ms is the contiguous cast
+    ``table.to(torch.bfloat16)`` it takes the place of."""
+    n, d = table.shape
+    width = bf16_row_width(d)
+    full = lambda t: t.as_strided((n, width), (width, 1))  # the view's buffer, pad included
+    assert torch.equal(full(SEGREDUCE.cast_bf16(table, width)), full(bf16_rows_plain(table)))
+    kernel_ms = time_ms(lambda: SEGREDUCE.cast_bf16(table, width))
+    plain_ms = time_ms(lambda: bf16_rows_plain(table))
+    library_ms = time_ms(lambda: table.to(torch.bfloat16))
+    # The one-call times above include each call's host time before its
+    # launch, which the wrapper's Python makes longer; five calls back to
+    # back hide it behind the previous call's device time.
+    back_to_back_ms = {
+        "kernel": time_ms(lambda: [SEGREDUCE.cast_bf16(table, width) for _ in range(5)]) / 5,
+        "library": time_ms(lambda: [table.to(torch.bfloat16) for _ in range(5)]) / 5,
+    }
+    row = kernel_row(
+        "segreduce_cast_bf16", "gnn_ecommerce_tpu_torch/csrc/segreduce.cu",
+        # Each f32 value read, its bf16 written: the pad columns are the
+        # design's overhead, not the function's work (as in K1 bf16's bound).
+        "gnn_ecommerce_tpu/ops/spmm_fast.py:425", 0.0, kernel_ms, plain_ms, library_ms,
+        n * d * (4 + 2), n * d, rows=n, width=width, back_to_back_ms=back_to_back_ms,
+    )
+    print(
+        f"  segreduce_cast_bf16: [{n}, {d}] f32 -> [{n}, {width}] bf16, exact; kernel_ms "
+        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms (contiguous .to(bfloat16)) "
+        f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f}; back_to_back_ms: kernel "
+        f"{back_to_back_ms['kernel']:.4f} library {back_to_back_ms['library']:.4f}",
+        flush=True,
+    )
+    return row
+
+
+def k1_case_plan(rng: np.random.Generator, ch: int, n_src: int, dev):
+    """Rows the main path's plans may not have: empty ones (first, middle,
+    last), one arc, exactly ch and ch + 1 arcs, a hub of more than 2,000
+    chunks, and rows of random length up to 3·ch."""
+    hub = 2000 * ch + 7
+    sizes = [0, 1, ch, ch + 1, 0, hub, 2, 0] + list(rng.integers(0, 3 * ch, 300)) + [0]
+    dst = np.repeat(np.arange(len(sizes)), sizes)
+    src = rng.integers(0, n_src, len(dst)).astype(np.int32)
+    w = rng.random(len(dst)).astype(np.float32) / 512
+    return build_segreduce_plan(src, dst, w, len(sizes), ch=ch, device=dev)
+
+
+def check_kernel_cases(dev: torch.device, seed: int) -> None:
+    """K1 on plans and tables the main path does not give it, against its
+    plain version with check_kernel's tolerance: the rows of k1_case_plan at
+    CH 256, 300 (two index windows a chunk) and 32, D from 1 to 256 on f32
+    tables and on bf16 ones both contiguous and padded to 16-byte rows
+    (bf16_rows, its bytes held to the plain cast), which between them take
+    every vector width and loads-per-arc instance of the kernel; each
+    launched twice for equal bytes."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_src = 200_000
+    for ch in (256, 300, 32):
+        plan = k1_case_plan(rng, ch, n_src, dev)
+        stats = plan_stats(plan)
+        assert stats["max_chunks_per_row"] > 2000 and stats["empty_rows"] >= 4, stats
+        for d in K1_CASE_DIMS:
+            x = torch.randn(n_src, d, generator=gen, device=dev)
+            width = bf16_row_width(d)
+            # The cast, and from x[1:] (not 16-byte aligned for most d) the
+            # cast of the wrapper's aligned copy; pad columns included.
+            for y in (x, x[1:]):
+                full = lambda t: t.as_strided((t.shape[0], width), (width, 1))
+                assert torch.equal(full(bf16_rows(y)), full(bf16_rows_plain(y))), d
+            for label, table in (("f32", x), ("bf16", x.to(torch.bfloat16)), ("bf16 padded", bf16_rows(x))):
+                out = SEGREDUCE(table, plan)
+                assert torch.equal(out, SEGREDUCE(table, plan)), (ch, d, label)
+                ref = segreduce_plain(table, plan)
+                scale = ref.abs().max().item()
+                torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
+                assert not out[plan.row_chunk_ptr[1:] == plan.row_chunk_ptr[:-1]].any(), "empty rows"
+        print(f"  K1 cases CH {ch}: {json.dumps(stats)}; D {K1_CASE_DIMS}, f32, bf16, bf16 padded: held",
+              flush=True)
+    # f32 tables of other layouts through gather_segreduce in both modes
+    # (an expanded one is what a .sum()'s gradient hands fast_to_users'
+    # backward), each against the plain version on the dense table.
+    x = torch.randn(n_src + 1, DIM, generator=gen, device=dev)
+    shape = (n_src, DIM)
+    layouts = {
+        "expanded row": x[:1].expand(shape),
+        "expanded scalar": x[:1, :1].expand(shape),
+        "transposed": x[:n_src].T.contiguous().T,
+        "offset rows": x.reshape(-1)[1 : 1 + n_src * DIM].view(shape),  # 4-byte aligned
+    }
+    for label, table in layouts.items():
+        dense = table.clone(memory_format=torch.contiguous_format)
+        for mode in (torch.float32, torch.bfloat16):
+            out = gather_segreduce(table, plan, mode)
+            ref = segreduce_plain(dense.to(mode), plan)
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())
+    print(f"  K1 through gather_segreduce on {', '.join(layouts)} f32 tables, f32 and bf16: held",
+          flush=True)
+    torch.cuda.synchronize()
 
 
 def tail_messages(table16: torch.Tensor, plan) -> torch.Tensor:
@@ -777,10 +963,13 @@ def main(argv=None) -> int:
         )
         rows = [check_kernel("segreduce_f32", E_u, full_plan)]
         del full_plan
+        check_kernel_cases(dev, args.seed)
         _, w_hi, t_src, t_dst, t_w, *_ = split_heavy_users(split, HEAVY_USERS, "bfloat16", dev)
         del w_hi
         tail_plan = build_segreduce_plan(t_src, t_dst, t_w, split.n_items, device=dev)
-        E_u16 = E_u.to(torch.bfloat16)
+        # The main path's bf16 table: gather_segreduce's cast into 16-byte rows.
+        rows.append(check_cast(E_u))
+        E_u16 = bf16_rows(E_u)
         rows.append(check_kernel("segreduce_bf16", E_u16, tail_plan))
         msgs = tail_messages(E_u16, tail_plan)
         rows.append(check_stream_sum(msgs))
@@ -947,7 +1136,7 @@ def main(argv=None) -> int:
         E_u = params["embedding"][: prepared.n_users]
         x_items = params["embedding"][prepared.n_users :].float()
         plan = fb16.fops.items_plan
-        E_u16 = E_u.to(torch.bfloat16)
+        E_u16 = bf16_rows(E_u)
         msgs = tail_messages(E_u16, plan)
         both = torch.cat([x_items, x_items], 1).to(torch.bfloat16)
         parts = {

@@ -61,19 +61,55 @@ class _Kernel:
 class SegReduceKernel(_Kernel):
     """``csrc/segreduce.cu``: out = Â · table over a ``SegReducePlan``.
 
-    Modes ``"float32"`` and ``"bfloat16"`` (the table's type); one call is
-    one chunk pass plus one combine pass on the card.
+    Modes ``"float32"`` and ``"bfloat16"`` (the table's type): one call is
+    one chunk pass, plus one combine pass when the plan has rows with no
+    chunk or several. Mode ``"cast_bf16"``: the padded bf16 table
+    (:meth:`cast_bf16`) that the bf16 mode reads 16 bytes a lane.
     """
 
     STEM = "segreduce"
-    MODES = ("float32", "bfloat16")
+    MODES = ("float32", "bfloat16", "cast_bf16")
     MAX_DIM = 256
 
     def _bind(self, lib: ctypes.CDLL) -> None:
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in (lib.segreduce_f32, lib.segreduce_bf16):
-            fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr, i64, ctypes.c_int, ptr, ptr, ptr]
+            fn.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, i64, i64, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
+        lib.segreduce_cast_bf16.argtypes = [ptr, i64, i32, i64, ptr, ptr]
+        lib.segreduce_cast_bf16.restype = ctypes.c_int
+
+    @staticmethod
+    def takes_rows(table: torch.Tensor) -> bool:
+        """Whether a [rows, D] table's layout is one the kernel reads: each
+        row's columns contiguous, rows disjoint (any row stride >= D).
+        ``table.contiguous()`` of any table is one."""
+        n_rows, d = table.shape
+        return (d <= 1 or table.stride(1) == 1) and (n_rows <= 1 or table.stride(0) >= d)
+
+    @staticmethod
+    def vector_width(table: torch.Tensor) -> int:
+        """Row elements a lane reads at once: 8 (16 bytes) on bf16 rows that
+        all start 16-byte aligned, else 2 (bf16 pairs, float2) on rows that
+        start at a multiple of their size, else 1."""
+        elt = table.element_size()
+        for v in (8, 2) if table.dtype == torch.bfloat16 else (2,):
+            if table.stride(0) % v == 0 and table.data_ptr() % (v * elt) == 0:
+                return v
+        return 1
+
+    def check_layout(self, table: torch.Tensor, plan) -> int:
+        """Raise on a table the kernel does not take; return its
+        :meth:`vector_width`. Rows may lie at any stride of at least D
+        (a padded bf16 table) but their columns must be contiguous."""
+        if table.dim() != 2 or not self.takes_rows(table):
+            raise ValueError("segreduce table must be [rows, D] with contiguous, disjoint rows")
+        n_rows, d = table.shape
+        if not 0 < d <= self.MAX_DIM:
+            raise ValueError(f"segreduce supports 1 <= D <= {self.MAX_DIM}, got {d}")
+        if n_rows < plan.n_src:
+            raise ValueError(f"table has {n_rows} rows, the plan reads {plan.n_src}")
+        return self.vector_width(table)
 
     def __call__(self, table: torch.Tensor, plan) -> torch.Tensor:
         """[n_out, D] f32 from a CUDA ``table`` of f32 (exact mode) or bf16
@@ -83,33 +119,59 @@ class SegReduceKernel(_Kernel):
             raise ValueError("the segreduce kernel takes a CUDA tensor")
         if table.dtype not in modes:
             raise TypeError(f"segreduce table must be f32 or bf16, got {table.dtype}")
-        if table.dim() != 2 or not table.is_contiguous():
-            raise ValueError("segreduce table must be a contiguous [rows, D] tensor")
+        vec = self.check_layout(table, plan)
+        if plan.src.device != table.device:  # the plan's tensors share one device
+            raise ValueError("plan and table must be on the same device")
         n_rows, d = table.shape
-        if not 0 < d <= self.MAX_DIM:
-            raise ValueError(f"segreduce supports 1 <= D <= {self.MAX_DIM}, got {d}")
-        if n_rows < plan.n_src:
-            raise ValueError(f"table has {n_rows} rows, the plan reads {plan.n_src}")
-        for t in (plan.src, plan.w, plan.chunk_ptr, plan.row_chunk_ptr):
-            if t.device != table.device:
-                raise ValueError("plan and table must be on the same device")
         mode = modes[table.dtype]
         lib = self.load()
         fn = lib.segreduce_bf16 if mode == "bfloat16" else lib.segreduce_f32
-        partial = torch.empty(plan.n_chunks, d, dtype=torch.float32, device=table.device)
+        partial = torch.empty(plan.n_partial, d, dtype=torch.float32, device=table.device)
         out = torch.empty(plan.n_out, d, dtype=torch.float32, device=table.device)
         with torch.cuda.device(table.device):
             rc = fn(
-                table.data_ptr(), plan.src.data_ptr(), plan.w.data_ptr(),
-                plan.chunk_ptr.data_ptr(), plan.n_chunks,
-                plan.row_chunk_ptr.data_ptr(), plan.n_out, d,
-                partial.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream,
+                table.data_ptr(), table.stride(0) if n_rows > 1 else d, d, vec,
+                plan.src.data_ptr(), plan.w.data_ptr(), plan.chunk_ptr.data_ptr(),
+                plan.chunk_slot.data_ptr(), plan.n_chunks, plan.comb_rows.data_ptr(),
+                plan.comb_ptr.data_ptr(), plan.comb_rows.numel(), plan.n_long, partial.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"segreduce launch failed: cudaError {rc}")
         self.launches[mode] += 1
         return out
+
+    def cast_bf16(self, table: torch.Tensor, width: int) -> torch.Tensor:
+        """The [n, D] bf16 view of a new [n, width] buffer (``width`` a
+        multiple of 8, at least D) holding ``table.to(bfloat16)``, pad
+        columns zero, from a CUDA f32 [rows, D] ``table``. The kernel reads
+        contiguous rows on a 16-byte aligned base: any other table is
+        copied into such rows first."""
+        if not table.is_cuda:
+            raise ValueError("the segreduce cast takes a CUDA tensor")
+        if table.dtype != torch.float32:
+            raise TypeError(f"the segreduce cast takes an f32 table, got {table.dtype}")
+        if table.dim() != 2:
+            raise ValueError("the segreduce cast takes a [rows, D] table")
+        n_rows, d = table.shape
+        if width % 8 or not 0 < d <= min(width, self.MAX_DIM):
+            raise ValueError(
+                f"the segreduce cast needs 0 < D <= min(width, {self.MAX_DIM}), width % 8 == 0; "
+                f"got {d}, {width}"
+            )
+        if not table.is_contiguous() or table.data_ptr() % 16:
+            table = table.clone(memory_format=torch.contiguous_format)
+        lib = self.load()
+        buf = torch.empty(n_rows, width, dtype=torch.bfloat16, device=table.device)
+        with torch.cuda.device(table.device):
+            rc = lib.segreduce_cast_bf16(
+                table.data_ptr(), n_rows, d, width, buf.data_ptr(),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"segreduce cast launch failed: cudaError {rc}")
+        self.launches["cast_bf16"] += 1
+        return buf[:, :d]
 
 
 class StreamSumKernel(_Kernel):

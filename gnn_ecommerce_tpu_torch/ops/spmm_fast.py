@@ -117,11 +117,18 @@ def ell_apply(
 # ---------------------------------------------------------------------------
 
 
+# A row with more chunks than this is combined by a block of warps, a row
+# with fewer by one warp.
+LONG_ROW_CHUNKS = 32
+
+
 @dataclasses.dataclass(frozen=True)
 class SegReducePlan:
     """Dst-sorted arcs (a CSR over the ``n_out`` rows), cut into chunks of at
     most ``ch`` arcs that never cross a row. The kernel gives each chunk a
-    warp and sums a row's chunk partials in a second pass; the plain version
+    warp: a row's only chunk writes the output row itself, the chunks of a
+    row with several write partial rows that a second pass adds in a fixed
+    order, and that pass also zeroes the rows with no arc. The plain version
     reads ``src``/``dst``/``w`` directly. No padding: every arc is real."""
 
     src: torch.Tensor  # [E] int32 rows of the table
@@ -129,8 +136,17 @@ class SegReducePlan:
     w: torch.Tensor  # [E] float32 normalized weights
     chunk_ptr: torch.Tensor  # [n_chunks+1] int64 arc offsets of the chunks
     row_chunk_ptr: torch.Tensor  # [n_out+1] int64 chunk range of each row
+    # [n_chunks] int32: the output row of a row's only chunk; -1 - p for a
+    # chunk that writes partial row p (a row's chunks take consecutive p).
+    chunk_slot: torch.Tensor
+    # [n_comb] int32 rows with no chunk or several: the n_long rows of more
+    # than LONG_ROW_CHUNKS chunks, then the others, each part ascending.
+    comb_rows: torch.Tensor
+    comb_ptr: torch.Tensor  # [n_comb+1] int64 partial rows of each comb row
     n_out: int
     n_src: int  # the table needs at least this many rows
+    n_partial: int  # partial rows: the chunks of rows with several
+    n_long: int  # the first n_long comb rows are each combined by a block
 
     @property
     def n_chunks(self) -> int:
@@ -157,6 +173,14 @@ def build_segreduce_plan(
     chunk_row = np.repeat(np.arange(n_out), per_row)
     k_in_row = np.arange(int(row_chunk_ptr[-1])) - np.repeat(row_chunk_ptr[:-1], per_row)
     chunk_ptr = np.append(indptr[chunk_row] + ch * k_in_row, len(dst))
+    long_rows = np.flatnonzero(per_row > LONG_ROW_CHUNKS)
+    comb_rows = np.concatenate([long_rows, np.flatnonzero((per_row != 1) & (per_row <= LONG_ROW_CHUNKS))])
+    comb_ptr = np.concatenate([[0], np.cumsum(per_row[comb_rows])])
+    first_partial = np.zeros(n_out, np.int64)
+    first_partial[comb_rows] = comb_ptr[:-1]
+    chunk_slot = np.where(
+        per_row[chunk_row] == 1, chunk_row, -1 - (first_partial[chunk_row] + k_in_row)
+    )
 
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
@@ -167,8 +191,13 @@ def build_segreduce_plan(
         w=put(w, np.float32),
         chunk_ptr=put(chunk_ptr, np.int64),
         row_chunk_ptr=put(row_chunk_ptr, np.int64),
+        chunk_slot=put(chunk_slot, np.int32),
+        comb_rows=put(comb_rows, np.int32),
+        comb_ptr=put(comb_ptr, np.int64),
         n_out=int(n_out),
         n_src=int(src.max()) + 1 if len(src) else 0,
+        n_partial=int(comb_ptr[-1]),
+        n_long=len(long_rows),
     )
 
 
@@ -185,17 +214,55 @@ def segreduce_plain(table: torch.Tensor, plan: SegReducePlan) -> torch.Tensor:
     return out
 
 
+def bf16_row_width(d: int) -> int:
+    """Columns of a bf16 row padded to a multiple of 16 bytes (96 for 90)."""
+    return -(-d // 8) * 8
+
+
+def bf16_rows_plain(table: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the padded cast: the [n, D] bf16 view of a
+    zeroed [n, bf16_row_width(D)] buffer holding ``table.to(bfloat16)``."""
+    n, d = table.shape
+    buf = torch.zeros(n, bf16_row_width(d), dtype=torch.bfloat16, device=table.device)
+    buf[:, :d] = table
+    return buf[:, :d]
+
+
+def bf16_rows(table: torch.Tensor) -> torch.Tensor:
+    """``table`` rounded to bf16 in rows of a 16-byte stride (pad columns
+    zero), so the kernel loads them 16 bytes a lane: the values of
+    ``table.to(torch.bfloat16)``. A CUDA f32 table launches the cast kernel
+    of ``csrc/segreduce.cu``; only a CPU table takes the plain version. Any
+    layout is taken."""
+    if table.device.type == "cpu":
+        return bf16_rows_plain(table)
+    return SEGREDUCE.cast_bf16(table, bf16_row_width(table.shape[1]))
+
+
+def segreduce_table(table: torch.Tensor, msgs_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The table :func:`gather_segreduce` reduces, in a layout the kernel
+    reads: for ``msgs_dtype=torch.bfloat16`` a non-bf16 table's
+    :func:`bf16_rows`; else the table itself, or a contiguous copy when
+    its rows overlap (an expanded gradient) or its columns are strided."""
+    if msgs_dtype == torch.bfloat16 and table.dtype != torch.bfloat16:
+        return bf16_rows(table)
+    if not SEGREDUCE.takes_rows(table):
+        return table.contiguous()
+    return table
+
+
 def gather_segreduce(
     table: torch.Tensor, plan: SegReducePlan, msgs_dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
     """[n_out, D] float32 = Â · table. ``msgs_dtype=torch.bfloat16`` casts the
-    table once and rounds each weight to bf16 (the main configuration's
-    mode); ``torch.float32`` is exact up to summation order.
+    table once (into 16-byte rows, :func:`bf16_rows`) and rounds each weight
+    to bf16 (the main configuration's mode); ``torch.float32`` is exact up to
+    summation order. A bf16 table is read as it is. Any layout is taken
+    (:func:`segreduce_table`).
 
     A CUDA table launches ``csrc/segreduce.cu``; only a CPU table takes the
     plain version."""
-    if msgs_dtype == torch.bfloat16:
-        table = table.to(torch.bfloat16)
+    table = segreduce_table(table, msgs_dtype)
     if table.device.type == "cpu":
         return segreduce_plain(table, plan)
-    return SEGREDUCE(table.contiguous(), plan)
+    return SEGREDUCE(table, plan)

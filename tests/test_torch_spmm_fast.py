@@ -3,6 +3,8 @@ the JAX package's, on the same arcs: the segment reduce against the Pallas
 kernel in interpret mode, the ELL, and fast_to_items / fast_to_users with
 and without the heavy-user head. The port runs on the CPU, where the CUDA
 kernel's wrapper takes its plain version."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,13 +71,205 @@ def test_segreduce_plan_chunks_cover_rows(small, ch):
     np.testing.assert_allclose(two_pass, plain, rtol=1e-5, atol=1e-6)
 
 
+def _edge_plan(seed: int, ch: int, n_src: int = 50):
+    """A plan with empty rows (first, middle, last), one arc, exactly ch and
+    ch + 1 arcs, a hub of 40 chunks and random rows."""
+    rng = np.random.default_rng(seed)
+    sizes = np.concatenate([[0, 1, ch, ch + 1, 0, 40 * ch + 3], rng.integers(0, 3 * ch + 2, 30), [0]])
+    dst = np.repeat(np.arange(len(sizes)), sizes)
+    src = rng.integers(0, n_src, len(dst))
+    w = rng.random(len(dst)).astype(np.float32)
+    return tfast.build_segreduce_plan(src, dst, w, len(sizes), ch=ch, device="cpu")
+
+
+@pytest.mark.parametrize("ch", [1, 4, 32, 256])
+def test_segreduce_plan_output_slots(ch):
+    """chunk_slot, comb_rows and comb_ptr against chunk_ptr/row_chunk_ptr:
+    a row's only chunk writes the row itself; comb_rows are exactly the rows
+    with no chunk or several, those of more than LONG_ROW_CHUNKS chunks
+    first; their partial rows follow comb_rows' order, and a row's chunks
+    take its consecutive partial rows in chunk order; every output row is
+    written once."""
+    plan = _edge_plan(ch, ch)
+    rcp = plan.row_chunk_ptr.numpy()
+    per_row = np.diff(rcp)
+    slot = plan.chunk_slot.numpy()
+    comb_rows, comb_ptr = plan.comb_rows.numpy(), plan.comb_ptr.numpy()
+    assert per_row.max() >= 41 and (per_row == 0).sum() >= 3
+    long_rows = np.flatnonzero(per_row > tfast.LONG_ROW_CHUNKS)
+    assert plan.n_long == len(long_rows) >= 1
+    np.testing.assert_array_equal(
+        comb_rows, np.concatenate([long_rows, np.flatnonzero((per_row != 1) & (per_row <= tfast.LONG_ROW_CHUNKS))])
+    )
+    np.testing.assert_array_equal(np.diff(comb_ptr), per_row[comb_rows])
+    assert comb_ptr[0] == 0 and comb_ptr[-1] == plan.n_partial == per_row[per_row > 1].sum()
+    for k, r in enumerate(comb_rows):
+        np.testing.assert_array_equal(-1 - slot[rcp[r] : rcp[r + 1]], np.arange(comb_ptr[k], comb_ptr[k + 1]))
+    single = np.flatnonzero(per_row == 1)
+    np.testing.assert_array_equal(slot[rcp[single]], single)
+    written = np.concatenate([slot[slot >= 0], comb_rows])
+    np.testing.assert_array_equal(np.sort(written), np.arange(plan.n_out))
+
+
+def _geometry(table: torch.Tensor) -> tuple:
+    """(elements a lane reads, 16-byte vectors of a row's covering span), as
+    csrc/segreduce.cu derives them from the rows' alignment."""
+    elt = table.element_size()
+    bits = table.data_ptr() | table.stride(0) * elt | 16
+    align = bits & -bits
+    return SEGREDUCE.vector_width(table), (16 - align + table.shape[1] * elt + 15) // 16
+
+
+def _kernel_order(x: np.ndarray, plan, vec: int, nv16: int) -> np.ndarray:
+    """csrc/segreduce.cu's sums in its fixed order, in f32 numpy. In a chunk,
+    a copy step carries ``rows`` arcs and lane group g sums rows g,
+    g + groups, ... of each step, so arc k (counted from its 256-arc index
+    window) goes to group (k % rows) % groups; each group sums its arcs in
+    order and the groups are added in order. A row's only chunk is its
+    output. The combine gives each of the first n_long comb rows a block,
+    whose warp g adds partials g, g+8, ... before the 8 warp sums are added
+    in order; each other comb row's warp adds its partials in order."""
+    d = x.shape[1]
+    n_cv = -(-d // vec)
+    rows = 32 // nv16 if nv16 <= 32 else 1
+    groups = 32 // n_cv if n_cv <= 32 else 1
+    src, w, cp = plan.src.numpy(), plan.w.numpy(), plan.chunk_ptr.numpy()
+    out = np.full((plan.n_out, d), np.nan, np.float32)
+    partial = np.full((plan.n_partial, d), np.nan, np.float32)
+    for c, dest in enumerate(plan.chunk_slot.numpy()):
+        acc = np.zeros((groups, d), np.float32)
+        for k in range(cp[c + 1] - cp[c]):
+            a = cp[c] + k
+            acc[k % 256 % rows % groups] += w[a] * x[src[a]]
+        total = acc[0]
+        for g in range(1, groups):
+            total = total + acc[g]
+        (out if dest >= 0 else partial)[dest if dest >= 0 else -1 - dest] = total
+    comb_ptr = plan.comb_ptr.numpy()
+    for b, r in enumerate(plan.comb_rows.numpy()):
+        lo, hi = comb_ptr[b], comb_ptr[b + 1]
+        n_warps = 8 if b < plan.n_long else 1
+        warps = [np.zeros(d, np.float32) for _ in range(n_warps)]
+        for g in range(n_warps):
+            for p in range(lo + g, hi, n_warps):
+                warps[g] = warps[g] + partial[p]
+        total = warps[0]
+        for g in range(1, n_warps):
+            total = total + warps[g]
+        out[r] = total
+    return out
+
+
+@pytest.mark.parametrize(
+    "ch,d,layout",
+    [
+        (256, 90, "float32"),  # the service's rows: 23 vectors a copy, 45 float2 a sum
+        (300, 33, "float32"),  # two index windows a chunk
+        (256, 90, "bf16 padded"),  # the main path: two 192-byte rows a copy and a sum
+        (32, 90, "bfloat16"),  # 180-byte rows: two a copy, bf16 pairs
+        (4, 20, "bf16 padded"),  # 3 vectors a row: 10 rows a step
+        (32, 1, "bf16 padded"),  # one vector a row: 32 rows a step
+    ],
+)
+def test_segreduce_kernel_order_matches_plain(ch, d, layout):
+    """The kernel's summation order over the plan (every row written once,
+    empty rows zero) gives the plain version's sums within f32 rounding."""
+    plan = _edge_plan(7, ch)
+    x = torch.from_numpy(normal(8, (50, d)))
+    table = {"float32": x, "bfloat16": x.to(torch.bfloat16), "bf16 padded": tfast.bf16_rows(x)}[layout]
+    plain = tfast.segreduce_plain(table, plan).numpy()
+    if table.dtype == torch.bfloat16:
+        plan = dataclasses.replace(plan, w=plan.w.to(torch.bfloat16).float())
+    got = _kernel_order(table.float().numpy(), plan, *_geometry(table))
+    assert not np.isnan(got).any()
+    empty = np.diff(plan.row_chunk_ptr.numpy()) == 0
+    assert (got[empty] == 0).all()
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max())
+
+
+@pytest.mark.parametrize("d", [1, 8, 90, 256])
+def test_bf16_rows_pads_to_16_byte_rows(d):
+    """The padded cast's [n, D] view: a row stride of a multiple of 16 bytes,
+    the values of ``table.to(bfloat16)``, zero pad columns; the kernel
+    loads it 16 bytes a lane."""
+    x = torch.from_numpy(normal(9, (37, d)))
+    got = tfast.bf16_rows(x)
+    width = tfast.bf16_row_width(d)
+    assert got.shape == (37, d) and got.stride() == (width, 1) and width * 2 % 16 == 0
+    assert width - d < 8
+    assert torch.equal(got, x.to(torch.bfloat16))
+    assert not got.as_strided((37, width), (width, 1))[:, d:].any()
+    assert SEGREDUCE.vector_width(got) == 8
+
+
+def test_segreduce_vector_width_follows_the_layout():
+    """16-byte reads only on bf16 rows that all start 16-byte aligned (a
+    stride of a multiple of 8); pairs on rows at an even stride; else 1."""
+    f32 = torch.zeros(10, 90)
+    assert SEGREDUCE.vector_width(f32) == 2
+    assert SEGREDUCE.vector_width(torch.zeros(10, 33)) == 1
+    assert SEGREDUCE.vector_width(f32.to(torch.bfloat16)) == 2
+    assert SEGREDUCE.vector_width(torch.zeros(10, 64, dtype=torch.bfloat16)) == 8
+    assert SEGREDUCE.vector_width(torch.zeros(10, 96, dtype=torch.bfloat16)[:, :90]) == 8
+    assert SEGREDUCE.vector_width(torch.zeros(10 * 96 + 1, dtype=torch.bfloat16)[1:].view(10, 96)) == 1
+    assert SEGREDUCE.vector_width(torch.zeros(10 * 96 + 2, dtype=torch.bfloat16)[2:].view(10, 96)) == 2
+
+
+def test_segreduce_check_layout_refuses_what_the_kernel_does_not_take(small):
+    _, tsplit = small
+    plan = tfast.build_segreduce_plan(*_ui_arcs(tsplit), device="cpu")
+    n = tsplit.n_users
+    assert SEGREDUCE.check_layout(torch.zeros(n, 90), plan) == 2
+    for bad in (
+        torch.zeros(90, n).T,  # columns not contiguous
+        torch.zeros(n, 0),
+        torch.zeros(n, 257),
+        torch.zeros(plan.n_src - 1, 8),
+        torch.zeros(n * 8).as_strided((n, 8), (4, 1)),  # rows overlap
+    ):
+        with pytest.raises(ValueError):
+            SEGREDUCE.check_layout(bad, plan)
+
+
 def test_segreduce_kernel_wrapper_refuses_cpu_tensors(small):
     _, tsplit = small
     plan = tfast.build_segreduce_plan(*_ui_arcs(tsplit), device="cpu")
     before = dict(SEGREDUCE.launches)
     with pytest.raises(ValueError, match="CUDA tensor"):
         SEGREDUCE(torch.zeros(tsplit.n_users, 4), plan)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        SEGREDUCE.cast_bf16(torch.zeros(tsplit.n_users, 4), 8)
     assert SEGREDUCE.launches == before
+
+
+_LAYOUTS = {
+    "expanded row": lambda x: x[:1].expand(x.shape),  # strides (0, 1)
+    "expanded scalar": lambda x: x[:1, :1].expand(x.shape),  # strides (0, 0), a broadcast gradient
+    "transposed": lambda x: x.T.contiguous().T,
+    "offset rows": lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape),  # 4-byte aligned
+    "column slice": lambda x: torch.cat([x, x[:, :3]], 1)[:, : x.shape[1]],
+}
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_gather_segreduce_takes_any_layout(small, layout, mode):
+    """Every table layout reaches the kernel in one it takes (check_layout
+    passes on segreduce_table's result), with the values of the dense table;
+    gather_segreduce gives the dense table's bytes."""
+    _, tsplit = small
+    plan = tfast.build_segreduce_plan(*_ui_arcs(tsplit), device="cpu")
+    dense = torch.from_numpy(normal(10, (tsplit.n_users, 9)))
+    table = _LAYOUTS[layout](dense)
+    dense = table.clone(memory_format=torch.contiguous_format)
+    _, tdt = DTYPES[mode]
+    got = tfast.segreduce_table(table, tdt)
+    SEGREDUCE.check_layout(got, plan)
+    assert torch.equal(got, tfast.segreduce_table(dense, tdt))
+    assert torch.equal(
+        tfast.gather_segreduce(table, plan, msgs_dtype=tdt),
+        tfast.gather_segreduce(dense, plan, msgs_dtype=tdt),
+    )
 
 
 @pytest.mark.parametrize("gather", ["float32", "bfloat16"])
