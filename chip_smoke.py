@@ -12,8 +12,9 @@ Phases, one printed line each (plus detail lines):
               (0.9) item popularity, power-law user degrees (the 16,384
               heaviest users hold about a fifth of the arcs); the splits
               follow the JAX package's data/prepare.py
-  3 kernel    each kernel against its plain version on the main path's
-              inputs: the segment reduce (K1) in f32 over all user->item arcs
+  3 kernel    each kernel against its plain version: first the probes'
+              (K2, K4, K5, K6: see phase 10), then on the main path's
+              inputs the segment reduce (K1) in f32 over all user->item arcs
               (the service's run) and in bf16 over the tail left by the
               16,384-user head (the main configuration's run) on the table
               cast into 16-byte rows by K1's cast kernel, each launched twice
@@ -42,16 +43,22 @@ Phases, one printed line each (plus detail lines):
   9 train     train() at dim 90 / 5 layers / batch 1024 / bf16 / 16,384
               head, 2 epochs of 235 batches with async checkpoints, then a
               resume from LAST for a third epoch
- 10 probes    the ports of the probe scripts: K2 (csrc/tile_segreduce.cu) in
+ 10 probes    the ports of the probe scripts (their kernels checked and
+              timed in phase 3): K2 (csrc/tile_segreduce.cu) in
               f32 and bf16 over the to_items plan (10,157,407 arcs into
               54,571 items, OT 512, CH 2048, D 80) and in bf16 over the
-              to_users plan (into 1,639,358 users), K4 (csrc/row_gather.cu)
-              on [1,639,358, 128] bf16 rows and [524,288, 8, 128] f32 tile
-              rows, K5 and K6 (csrc/lane_gather.cu) on an [80, 54,571] bf16
-              table with 10,153,984 indices, each against its plain version
-              (exact for the gathers) with kernel, plain and library times
-              and the bound; then, counted from 0, each probe module's main
-              at its full shapes
+              to_users plan (into 1,639,358 users), twice for equal bytes,
+              and on odd layouts; K4 (csrc/row_gather.cu) on
+              [1,639,358, 128] bf16 rows and [524,288, 8, 128] f32 tile
+              rows, exact at every (k_inflight, chunk) the probe times, and
+              at odd chunks that walk a bulk block through several index
+              windows; K5 and K6 (csrc/lane_gather.cu) on an
+              [80, 54,571] bf16 table with 10,153,984 indices; each against
+              its plain version (exact for the gathers) with kernel, plain
+              and library times, per-pass device times, the bound and
+              yardsticks (K2: torch.segment_reduce over the real arcs; K4: a
+              contiguous copy of the same bytes); here, counted from 0, each
+              probe module's main at its full shapes
  11 kernels   one JSON line of the port's kernels, with their launches on
               the paths of phases 4-6, 7, 8, 9 and 10 (each counted from 0
               just before the path and read just after)
@@ -173,6 +180,9 @@ def build_kernels() -> None:
     def build(kernel):
         try:
             kernel.load()
+        except subprocess.CalledProcessError as e:  # the compiler's own words, then re-raised
+            print(f"  build of {kernel.STEM} failed:\n{e.stdout}{e.stderr}", flush=True)
+            errors.append(e)
         except Exception as e:  # re-raised below, on the main thread
             errors.append(e)
 
@@ -326,9 +336,13 @@ def device_profile(label: str, fn, top: int = 6) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} {e.key[:90]}")
 
 
-def pass_times(fn, calls: int = 5) -> dict:
-    """Mean device ms per call of each CUDA kernel that ``fn`` launches,
-    by kernel name, over ``calls`` calls under torch.profiler."""
+def pass_times(fn, names: dict, label: str = "", calls: int = 5) -> dict | None:
+    """Device ms per call of each pass of ``fn``, over ``calls`` calls under
+    torch.profiler. ``names`` maps a key of each pass's kernel symbol to the
+    pass's short name; every pass launches once a call. None unless the
+    profiler recorded each pass exactly ``calls`` times and no other kernel:
+    it has dropped kernels in a session, and a missing launch is not made
+    up (a printed line says so, after ``label``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,11 +352,18 @@ def pass_times(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {
-        e.key: e.self_device_time_total / 1e3 / calls
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    }
+    ms, counts = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.count:
+            continue
+        short = next((s for key, s in names.items() if key in e.key), e.key[:60])
+        ms[short] = ms.get(short, 0.0) + e.self_device_time_total / 1e3
+        counts[short] = counts.get(short, 0) + e.count
+    if counts != {short: calls for short in names.values()}:
+        print(f"  {label} passes not measured: launches recorded in {calls} calls {counts}, "
+              f"expected each of {sorted(names.values())} {calls} times", flush=True)
+        return None
+    return {short: total / calls for short, total in ms.items()}
 
 
 def plan_stats(plan) -> dict:
@@ -358,16 +379,6 @@ def plan_stats(plan) -> dict:
         "empty_rows": int((arcs == 0).sum()),
         "long_rows": plan.n_long,
     }
-
-
-def k1_passes(name: str, fn) -> dict:
-    """K1's passes' device times under torch.profiler."""
-    passes = {}
-    for kname, ms in pass_times(fn).items():
-        short = "combine" if "combine" in kname else "chunks" if "chunks" in kname else kname[:60]
-        passes[short] = ms
-    print(f"  {name} passes ms: " + " ".join(f"{k} {v:.4f}" for k, v in passes.items()), flush=True)
-    return passes
 
 
 def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
@@ -429,7 +440,8 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
         del csr16, dense16
     print(f"  {name} plan: {json.dumps(plan_stats(plan))} vector width {SEGREDUCE.vector_width(table)} "
           f"row stride {table.stride(0)}", flush=True)
-    passes = k1_passes(name, lambda: SEGREDUCE(table, plan))
+    k1_names = {"chunks": "chunks", "combine": "combine"} if plan.comb_rows.numel() else {"chunks": "chunks"}
+    passes = named_passes(name, lambda: SEGREDUCE(table, plan), k1_names)
     print(
         f"  {name}: arcs {n_arcs} chunks {plan.n_chunks} rows_read {rows_read} "
         f"max_abs_err {err:.3e} (max |ref| {scale:.3e}, check margin {margin:.3f}; "
@@ -626,14 +638,37 @@ def kernel_row(name, source, replaces, err, kernel_ms, plain_ms, library_ms, byt
     }
 
 
-def check_tile_segreduce(name: str, plan: dict, t: dict, msgs: torch.Tensor, ot: int) -> dict:
+def named_passes(name: str, fn, names: dict) -> dict | None:
+    """``pass_times`` of ``fn`` with one printed line (None: not measured)."""
+    passes = pass_times(fn, names, name)
+    if passes is not None:
+        print(f"  {name} passes ms: " + " ".join(f"{k} {v:.4f}" for k, v in passes.items()), flush=True)
+    return passes
+
+
+def real_arcs(plan: dict, dst_sorted: np.ndarray, ot: int) -> np.ndarray:
+    """Positions of a probe plan's real (unpadded) arcs, in dst order: each
+    tile's arcs open its first chunk, the padding follows them."""
+    ch = len(plan["seg"]) // plan["n_chunks"]
+    chunks = np.bincount(plan["tile_map"], minlength=plan["n_tiles"])
+    starts = np.concatenate([[0], np.cumsum(chunks)[:-1]]) * ch
+    cnt = np.bincount(dst_sorted // ot, minlength=plan["n_tiles"])
+    return np.repeat(starts - np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt) + np.arange(len(dst_sorted))
+
+
+def check_tile_segreduce(name: str, plan: dict, t: dict, msgs: torch.Tensor, ot: int,
+                         dst_sorted: np.ndarray) -> dict:
     """K2 against its plain version (the one-hot products) on a probe plan.
     Tolerance: TILE_SEGREDUCE_RTOL (1e-6) of the largest output element's
     Σ|msg| (both sum the same f32 values, or exact products of bf16 ones, in
-    different orders)."""
+    different orders). Yardsticks: ``index_add_`` of the padded messages
+    (library_ms) and ``torch.segment_reduce`` over the real arcs' f32
+    messages in dst order (segment_reduce_ms), the one-call equivalent on
+    this plan."""
     n_tiles, n_chunks = plan["n_tiles"], plan["n_chunks"]
     args = (msgs, t["seg"], t["tile_map"], t["first"], n_tiles, ot)
     out = TILE_SEGREDUCE(*args)
+    assert torch.equal(out, TILE_SEGREDUCE(*args)), f"{name}: two launches gave different bytes"
     ref = tile_segreduce_plain(*args)
     ch = msgs.shape[0] // n_chunks
     rows = t["tile_map"].long().repeat_interleave(ch) * ot + t["seg"].long()
@@ -656,20 +691,33 @@ def check_tile_segreduce(name: str, plan: dict, t: dict, msgs: torch.Tensor, ot:
     library_ms = time_ms(
         lambda: torch.zeros(n_tiles * ot, msgs.shape[1], device=msgs.device).index_add_(0, rows, msgs_f)
     )
+    del rows
+    real = torch.from_numpy(real_arcs(plan, dst_sorted, ot)).to(msgs.device)
+    real_msgs = msgs_f.index_select(0, real)
+    del msgs_f, real
+    lengths = torch.bincount(torch.from_numpy(dst_sorted).to(msgs.device).long(), minlength=n_tiles * ot)
+    segment_reduce_ms = time_ms(lambda: torch.segment_reduce(real_msgs, "sum", lengths=lengths))
+    del real_msgs, lengths
+    k2_names = {"tiles": "tiles"}
+    if TILE_SEGREDUCE.n_splits(n_tiles, n_chunks) > 1:
+        k2_names["combine"] = "combine"
+    passes = named_passes(name, lambda: TILE_SEGREDUCE(*args), k2_names)
     e_pad, d = msgs.shape
     bytes_once = e_pad * d * msgs.element_size() + e_pad * 4 + n_chunks * 8 + n_tiles * ot * d * 4
     row = kernel_row(
         name, "gnn_ecommerce_tpu_torch/csrc/tile_segreduce.cu", "scripts/proto_segreduce.py:90",
         err, kernel_ms, plain_ms, library_ms, bytes_once, e_pad * d,
         e_pad=e_pad, pad_ratio=plan["pad_ratio"], n_chunks=n_chunks, n_tiles=n_tiles,
-        n_splits=TILE_SEGREDUCE.n_splits(n_tiles, n_chunks),
+        n_splits=TILE_SEGREDUCE.n_splits(n_tiles, n_chunks), pass_ms=passes,
+        segment_reduce_ms=segment_reduce_ms,
     )
     print(
         f"  {name}: E_pad {e_pad} (pad {plan['pad_ratio']:.4f}) chunks {n_chunks} tiles {n_tiles} "
         f"splits {row['n_splits']} max_abs_err {err:.3e} (max Σ|msg| {scale:.3e}, allowed "
         f"{TILE_SEGREDUCE_RTOL * scale:.3e}; per-element margin {elem_margin:.3f}; vs f64: kernel "
-        f"{f64_kernel:.3e} plain {f64_plain:.3e}) kernel_ms {kernel_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {library_ms:.4f} bytes {bytes_once} bound_ms "
+        f"{f64_kernel:.3e} plain {f64_plain:.3e}) equal bytes on a second launch; kernel_ms "
+        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms (index_add_) {library_ms:.4f} "
+        f"segment_reduce_ms {segment_reduce_ms:.4f} bytes {bytes_once} bound_ms "
         f"{row['bound_ms']:.4f}",
         flush=True,
     )
@@ -679,11 +727,19 @@ def check_tile_segreduce(name: str, plan: dict, t: dict, msgs: torch.Tensor, ot:
 def check_tile_segreduce_cases(dev: torch.device, seed: int) -> None:
     """K2 on layouts the probe plans never make, against its plain version:
     seg in any order and partly outside [0, OT), resets in the middle of a
-    tile, tiles with no chunk, split tiles, odd D. Same tolerance."""
+    tile, tiles with no chunk, split tiles, odd D, and D that takes each
+    vector width (8, 4, 2 and 1 bf16 columns; 4, 2 and 1 f32), one D not a
+    multiple of 16 bytes (90 bf16), tiles summed in two row bands, split
+    and not. Same tolerance; two launches give the same bytes."""
     rng = np.random.default_rng(seed)
+    widths = []
     for n_tiles, ot, ch, d, dtype in (
         (3, 64, 96, 33, torch.bfloat16), (5, 128, 256, 80, torch.float32),
         (40, 16, 32, 128, torch.float32), (1100, 16, 32, 8, torch.bfloat16),  # the last unsplit
+        (3, 32, 64, 90, torch.bfloat16), (4, 48, 80, 36, torch.bfloat16),
+        (6, 32, 64, 50, torch.float32), (2, 16, 40, 33, torch.float32),
+        (3, 600, 128, 64, torch.float32), (2, 512, 96, 80, torch.bfloat16),  # two row bands
+        (1100, 600, 32, 64, torch.float32), (1100, 512, 32, 80, torch.bfloat16),  # unsplit, banded
     ):
         n_chunks = 7 * n_tiles
         tile_map = np.sort(rng.integers(0, n_tiles, n_chunks)).astype(np.int32)
@@ -692,20 +748,39 @@ def check_tile_segreduce_cases(dev: torch.device, seed: int) -> None:
         msgs = torch.from_numpy(rng.standard_normal((n_chunks * ch, d)).astype(np.float32)).to(dev, dtype)
         args = [torch.from_numpy(a).to(dev) for a in (seg, tile_map, first)]
         out = TILE_SEGREDUCE(msgs, *args, n_tiles, ot)
+        assert torch.equal(out, TILE_SEGREDUCE(msgs, *args, n_tiles, ot)), (n_tiles, ot, ch, d)
         ref = tile_segreduce_plain(msgs, *args, n_tiles, ot)
         scale = msgs.float().abs().sum(0).max().item()
         err = (out - ref).abs().max().item()
         assert err <= TILE_SEGREDUCE_RTOL * scale, (n_tiles, ot, ch, d, err, scale)
+        vec = TILE_SEGREDUCE.vector_width(msgs)
+        widths.append(f"{n_tiles}x{ot}x{d}{'bf16' if dtype == torch.bfloat16 else 'f32'}:{vec}/"
+                      f"{TILE_SEGREDUCE.n_bands(ot, d, vec)}")
     torch.cuda.synchronize()
+    print(f"  K2 cases (tiles x OT x D dtype: vector width/row bands) {' '.join(widths)}: held",
+          flush=True)
 
 
 def check_row_gather(name: str, table: torch.Tensor, idx: torch.Tensor, k: int, chunk: int) -> dict:
-    """K4 against ``table[idx]``: equal bytes."""
-    assert torch.equal(ROW_GATHER(table, idx, k_inflight=k, chunk=chunk), row_gather_plain(table, idx))
+    """K4 against ``table[idx]``: equal bytes at every (k_inflight, chunk)
+    the probe times. Yardsticks: ``index_select`` (library_ms) and a
+    contiguous copy of the same n·row_bytes (copy_ms), the card's rate for
+    these bytes with no random rows."""
+    want = row_gather_plain(table, idx)
+    for ck, cc in pallas_gather_probe.CONFIGS:
+        assert torch.equal(ROW_GATHER(table, idx, k_inflight=ck, chunk=cc), want), (name, ck, cc)
+    del want
     kernel_ms = time_ms(lambda: ROW_GATHER(table, idx, k_inflight=k, chunk=chunk))
     plain_ms = time_ms(lambda: row_gather_plain(table, idx))
     library_ms = time_ms(lambda: torch.index_select(table, 0, idx))
     n, row_bytes = idx.numel(), table[0].numel() * table.element_size()
+    src = torch.empty(n * row_bytes, dtype=torch.uint8, device=table.device)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src))
+    del src, dst
+    back_to_back_ms = time_ms(lambda: [ROW_GATHER(table, idx, k_inflight=k, chunk=chunk) for _ in range(5)]) / 5
+    passes = named_passes(name, lambda: ROW_GATHER(table, idx, k_inflight=k, chunk=chunk),
+                          {"row_gather": "gather"})
     uniq = torch.unique(idx).numel()
     # Each referenced row read once, the indices, the output written once.
     bytes_once = uniq * row_bytes + n * 4 + n * row_bytes
@@ -714,16 +789,48 @@ def check_row_gather(name: str, table: torch.Tensor, idx: torch.Tensor, k: int, 
         name, "gnn_ecommerce_tpu_torch/csrc/row_gather.cu", "scripts/pallas_gather_probe.py:48",
         0.0, kernel_ms, plain_ms, library_ms, bytes_once, 0,
         rows=n, row_bytes=row_bytes, k_inflight=k, chunk=chunk,
-        gather_bound_ms=bytes_gather / HBM_BYTES_PER_S * 1e3,
+        gather_bound_ms=bytes_gather / HBM_BYTES_PER_S * 1e3, pass_ms=passes, copy_ms=copy_ms,
+        back_to_back_ms=back_to_back_ms, path=ROW_GATHER.path(row_bytes),
     )
     print(
-        f"  {name}: table {tuple(table.shape)} {table.dtype} rows {n} unique {uniq} exact "
-        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-        f"bound_ms {row['bound_ms']:.4f} gather_bound_ms {row['gather_bound_ms']:.4f} "
+        f"  {name}: table {tuple(table.shape)} {table.dtype} rows {n} unique {uniq} exact at "
+        f"(k_inflight, chunk) {pallas_gather_probe.CONFIGS}; kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms (index_select) {library_ms:.4f} copy_ms {copy_ms:.4f} back_to_back_ms "
+        f"{back_to_back_ms:.4f} path {row['path']} bound_ms {row['bound_ms']:.4f} gather_bound_ms {row['gather_bound_ms']:.4f} "
         f"({n * row_bytes * 2 / kernel_ms / 1e9:.1f} TB/s moved)",
         flush=True,
     )
     return row
+
+
+def check_row_gather_cases(dev: torch.device, seed: int) -> None:
+    """K4 on index blocks the probe never makes, bit-exact against
+    ``index_select``: chunks that are not a multiple of 4, with about three
+    index blocks for each block of the bulk path's persistent grid, so that
+    each block walks several windows through both halves of its index
+    buffer; on 4 KB and 1 KB rows (the bulk path) and 256-byte rows (the
+    lanes path), from an index array at a 16-byte boundary and 4 bytes
+    past one."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    held = []
+    for shape, dtype in (((20_000, 8, 128), torch.float32), ((20_000, 256), torch.float32),
+                         ((20_000, 128), torch.bfloat16)):
+        table = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        row_bytes = table[0].numel() * table.element_size()
+        for chunk in (5, 7, 13):
+            for k in ROW_GATHER.K_INFLIGHT:
+                grid = ROW_GATHER.grid(1 << 30, sms, ROW_GATHER.bulk_shared_bytes(k, row_bytes, chunk))
+                n = chunk * (3 * grid + 1)
+                idx = torch.randint(0, shape[0], (n + 1,), generator=gen, device=dev, dtype=torch.int32)
+                for offset in (0, 1):
+                    sub = idx[offset : offset + n]
+                    got = ROW_GATHER(table, sub, k_inflight=k, chunk=chunk)
+                    assert torch.equal(got, torch.index_select(table, 0, sub)), (shape, chunk, k, offset)
+        held.append(f"{row_bytes} B {ROW_GATHER.path(row_bytes)}")
+    torch.cuda.synchronize()
+    print(f"  K4 cases ({', '.join(held)}; chunk 5, 7, 13 x k {ROW_GATHER.K_INFLIGHT}, "
+          f"3 index blocks + 1 a grid block, indices at offsets 0 and 4 B): held", flush=True)
 
 
 def check_lane_gather(name: str, replaces: str, tab: torch.Tensor, idx: torch.Tensor, layout: str) -> dict:
@@ -761,15 +868,17 @@ def probe_kernel_rows(dev: torch.device, seed: int) -> list:
     t = proto_segreduce.plan_tensors(plan, dev)
     T = torch.randn(NU, D, generator=gen, device=dev)
     for dtype, name in ((torch.float32, "tile_segreduce_f32"), (torch.bfloat16, "tile_segreduce_bf16")):
-        rows.append(check_tile_segreduce(name, plan, t, proto_segreduce.messages(T, t, dtype), 512))
+        rows.append(check_tile_segreduce(
+            name, plan, t, proto_segreduce.messages(T, t, dtype), 512, item_sorted))
     plan = proto_segreduce.build_plan(item_src, user_sorted, w, NU, 512, 2048)
     t = proto_segreduce.plan_tensors(plan, dev)
     T = torch.randn(NI, D, generator=gen, device=dev)
     msgs = proto_segreduce.messages(T, t, torch.bfloat16)
-    rows.append(check_tile_segreduce(TO_USERS, plan, t, msgs, 512))
+    rows.append(check_tile_segreduce(TO_USERS, plan, t, msgs, 512, user_sorted))
     del plan, t, T, msgs
     torch.cuda.empty_cache()
 
+    check_row_gather_cases(dev, seed)
     s = pallas_gather_probe.shapes(dev)
     table = torch.randn(s["n_rows"], 128, generator=gen, device=dev, dtype=torch.bfloat16)
     idx = torch.randint(0, s["n_rows"], (s["n_gather"],), generator=gen, device=dev, dtype=torch.int32)
@@ -957,6 +1066,9 @@ def main(argv=None) -> int:
     path_launches = {}
     with torch.no_grad():
         t0 = time.perf_counter()
+        # The probes' kernels first: torch.profiler has returned no kernel
+        # for pass_times after the profiled phases 4-8 of a run.
+        probe_rows = probe_kernel_rows(dev, args.seed)
         E_u = params["embedding"][: prepared.n_users]
         full_plan = build_segreduce_plan(
             split.ui_src_user, split.ui_dst_item, split.ui_w, split.n_items, device=dev
@@ -1226,12 +1338,12 @@ def main(argv=None) -> int:
     )
 
     # Probes (the ports of the gather and segment-reduce probe scripts):
-    # K2, K4, K5 and K6 against their plain versions at the probes' full
-    # shapes, then every count from 0 and each probe's main as a user runs it.
+    # every count from 0 and each probe's main as a user runs it (K2, K4,
+    # K5 and K6 were held against their plain versions in phase 3).
     t0 = time.perf_counter()
     del result, resumed
     torch.cuda.empty_cache()
-    rows += probe_kernel_rows(dev, args.seed)
+    rows += probe_rows
     reset_launches()
     probe_results = run_probe_mains(dev)
     to_users = sum(

@@ -9,6 +9,7 @@ import time. A wrapper checks its inputs, allocates the outputs with
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -27,6 +28,19 @@ def nvcc_command() -> list[str]:
         nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     ]
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _on_device(device: torch.device):
+    """``torch.cuda.device(device)``, or no context when it is already the
+    current device (the common case, and the cheaper one on the host)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 class _Kernel:
@@ -128,13 +142,13 @@ class SegReduceKernel(_Kernel):
         fn = lib.segreduce_bf16 if mode == "bfloat16" else lib.segreduce_f32
         partial = torch.empty(plan.n_partial, d, dtype=torch.float32, device=table.device)
         out = torch.empty(plan.n_out, d, dtype=torch.float32, device=table.device)
-        with torch.cuda.device(table.device):
+        with _on_device(table.device):
             rc = fn(
                 table.data_ptr(), table.stride(0) if n_rows > 1 else d, d, vec,
                 plan.src.data_ptr(), plan.w.data_ptr(), plan.chunk_ptr.data_ptr(),
                 plan.chunk_slot.data_ptr(), plan.n_chunks, plan.comb_rows.data_ptr(),
                 plan.comb_ptr.data_ptr(), plan.comb_rows.numel(), plan.n_long, partial.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                out.data_ptr(), _raw_stream(table.device),
             )
         if rc != 0:
             raise RuntimeError(f"segreduce launch failed: cudaError {rc}")
@@ -163,10 +177,9 @@ class SegReduceKernel(_Kernel):
             table = table.clone(memory_format=torch.contiguous_format)
         lib = self.load()
         buf = torch.empty(n_rows, width, dtype=torch.bfloat16, device=table.device)
-        with torch.cuda.device(table.device):
+        with _on_device(table.device):
             rc = lib.segreduce_cast_bf16(
-                table.data_ptr(), n_rows, d, width, buf.data_ptr(),
-                torch.cuda.current_stream().cuda_stream,
+                table.data_ptr(), n_rows, d, width, buf.data_ptr(), _raw_stream(table.device),
             )
         if rc != 0:
             raise RuntimeError(f"segreduce cast launch failed: cudaError {rc}")
@@ -210,11 +223,10 @@ class StreamSumKernel(_Kernel):
         lib = self.load()
         partial = torch.empty(n_blocks, d, dtype=torch.float32, device=msgs.device)
         out = torch.empty(1, d, dtype=torch.float32, device=msgs.device)
-        with torch.cuda.device(msgs.device):
+        with _on_device(msgs.device):
             rc = lib.stream_sum_bf16(
                 msgs.data_ptr(), n_rows, d, rows_per_block, n_blocks,
-                partial.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream,
+                partial.data_ptr(), out.data_ptr(), _raw_stream(msgs.device),
             )
         if rc != 0:
             raise RuntimeError(f"stream_sum launch failed: cudaError {rc}")
@@ -239,6 +251,7 @@ class TileSegReduceKernel(_Kernel):
     MODES = ("float32", "bfloat16")
     MAX_DIM = 128
     MAX_SHARED_BYTES = 232_448  # the most dynamic shared memory a block can have
+    TWO_BLOCKS_SHARED_BYTES = 115_712  # each of two blocks on one SM (1 KB each reserved)
     # Blocks of the tile pass to aim for: few tiles are split over up to
     # this many blocks. A function of the plan's shape only, so the order of
     # the sums (and the result) does not depend on the card.
@@ -247,10 +260,8 @@ class TileSegReduceKernel(_Kernel):
     def _bind(self, lib: ctypes.CDLL) -> None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in (lib.tile_segreduce_f32, lib.tile_segreduce_bf16):
-            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64, i32, ptr, ptr, ptr, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i64, i32, i32, ptr, ptr, ptr, ptr, ptr]
             fn.restype = ctypes.c_int
-        lib.tile_segreduce_shared_bytes.argtypes = [i32, i32, i32]
-        lib.tile_segreduce_shared_bytes.restype = i64
 
     def n_splits(self, n_tiles: int, n_chunks: int) -> int:
         """Blocks per tile: enough for about TARGET_BLOCKS, at most the mean
@@ -258,6 +269,41 @@ class TileSegReduceKernel(_Kernel):
         if n_tiles == 0:
             return 1
         return max(1, min(-(-self.TARGET_BLOCKS // n_tiles), n_chunks // n_tiles))
+
+    @staticmethod
+    def lane_groups(d: int, vec: int) -> int:
+        """Rows a warp reads at once: lane groups of D / vec lanes each."""
+        return 32 // (d // vec) if d // vec <= 32 else 1
+
+    @classmethod
+    def shared_bytes(cls, band_rows: int, d: int, vec: int) -> int:
+        """One tile block's shared memory (as ``csrc/tile_segreduce.cu`` lays
+        it out): the band's [band_rows, D] f32 sums; two edge runs, their
+        rows and the list of row starts for each of the 16·groups slices;
+        scratch."""
+        slots = 2 * 16 * cls.lane_groups(d, vec)
+        return (band_rows + slots) * d * 4 + (2 * slots + 1) * 4 + 32 * 4 + 4 + 16 * 8 + 4 * 8
+
+    @classmethod
+    def n_bands(cls, ot: int, d: int, vec: int) -> int:
+        """Row bands a tile is summed in, one block each: the fewest whose
+        block fits twice in an SM's shared memory (2 at OT 512, D 80). A
+        function of the plan's shape and the messages' layout only."""
+        for bands in range(1, ot + 1):
+            if cls.shared_bytes(-(-ot // bands), d, vec) <= cls.TWO_BLOCKS_SHARED_BYTES:
+                return bands
+        return ot
+
+    @staticmethod
+    def vector_width(msgs: torch.Tensor) -> int:
+        """Message columns a lane reads at once: the widest of 16, 8, 4 or 2
+        bytes (8/4/2/1 bf16 or 4/2/1 f32 columns) that divides both a row
+        and the base address."""
+        elt, d = msgs.element_size(), msgs.shape[1]
+        for v in (8, 4, 2, 1):
+            if v * elt <= 16 and d % v == 0 and msgs.data_ptr() % (v * elt) == 0:
+                return v
+        return 1
 
     def __call__(self, msgs, seg, tile_map, first, n_tiles: int, ot: int) -> torch.Tensor:
         modes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -277,27 +323,29 @@ class TileSegReduceKernel(_Kernel):
         ch = e_pad // n_chunks
         if not 0 < d <= self.MAX_DIM:
             raise ValueError(f"tile_segreduce supports 1 <= D <= {self.MAX_DIM}, got {d}")
-        mode = modes[msgs.dtype]
-        lib = self.load()
-        shared = lib.tile_segreduce_shared_bytes(ch, ot, d)
+        vec = self.vector_width(msgs)
+        splits = self.n_splits(n_tiles, n_chunks)
+        bands = self.n_bands(ot, d, vec)
+        shared = self.shared_bytes(-(-ot // bands), d, vec)
         if shared > self.MAX_SHARED_BYTES:
             raise ValueError(
-                f"tile_segreduce: OT={ot}, CH={ch}, D={d} needs {shared} bytes of shared memory"
+                f"tile_segreduce: OT={ot}, D={d} needs {shared} bytes of shared memory"
             )
-        splits = self.n_splits(n_tiles, n_chunks)
+        mode = modes[msgs.dtype]
+        lib = self.load()
         out = torch.empty(n_tiles * ot, d, dtype=torch.float32, device=msgs.device)
-        partial = reset = None
+        partial = reset = written = None
         if splits > 1:
             partial = torch.empty(n_tiles * splits * ot * d, dtype=torch.float32, device=msgs.device)
             reset = torch.empty(n_tiles * splits, dtype=torch.int32, device=msgs.device)
+            written = torch.empty(n_tiles * splits * bands, dtype=torch.int32, device=msgs.device)
         fn = lib.tile_segreduce_bf16 if mode == "bfloat16" else lib.tile_segreduce_f32
-        with torch.cuda.device(msgs.device):
+        with _on_device(msgs.device):
             rc = fn(
                 msgs.data_ptr(), seg.data_ptr(), tile_map.data_ptr(), first.data_ptr(),
-                n_chunks, ch, ot, d, n_tiles, splits,
-                None if partial is None else partial.data_ptr(),
-                None if reset is None else reset.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                n_chunks, ch, ot, d, vec, n_tiles, splits, bands,
+                *(None if t is None else t.data_ptr() for t in (partial, reset, written)),
+                out.data_ptr(), _raw_stream(msgs.device),
             )
         if rc != 0:
             raise RuntimeError(f"tile_segreduce launch failed: cudaError {rc}")
@@ -307,45 +355,101 @@ class TileSegReduceKernel(_Kernel):
 
 class RowGatherKernel(_Kernel):
     """``csrc/row_gather.cu`` (K4): ``out[j] = table[idx[j]]`` for rows of a
-    multiple of 16 bytes, ``k_inflight`` loads per lane in flight, blocks of
+    multiple of 16 bytes, ``k_inflight`` rows in flight, index blocks of
     ``chunk`` rows. The kernel moves bytes; the mode is the table's type
     (``"bfloat16"``: the probe's [N, 128] rows; ``"float32"``: its
-    [N, 8, 128] tile rows)."""
+    [N, 8, 128] tile rows). Two paths, chosen by row bytes (:meth:`path`):
+    ``"bulk"``, bulk-copy (TMA) row DMAs through a shared-memory ring on a
+    persistent grid (:meth:`grid`), and ``"lanes"``, 16-byte lane loads and
+    stores."""
 
     STEM = "row_gather"
     MODES = ("bfloat16", "float32")
+    _MODE_OF = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
     K_INFLIGHT = (4, 8, 16)  # the probe's
     MAX_CHUNK = 12_288
+    # Narrower rows take the lanes path. Only 256-byte rows (lanes 2.5x
+    # faster) and 4 KB rows (bulk 1% faster) were timed: the cut-over lies
+    # somewhere in between, and 1 KB is not a measured point.
+    BULK_MIN_ROW_BYTES = 1024
+    BULK_BLOCKS_PER_SM = 4
+    SHARED_BYTES_PER_SM = 232_448
+
+    def __init__(self):
+        super().__init__()
+        self._sm_count = {}
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.row_gather.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr, ptr]
+        lib.row_gather.argtypes = [ptr, ptr, i64, i64, i32, i32, i32, i32, ptr, ptr]
         lib.row_gather.restype = ctypes.c_int
 
+    @classmethod
+    def path(cls, row_bytes: int) -> str:
+        """The path that serves rows of ``row_bytes``: bulk copies for wide
+        rows, lane loads for narrow ones."""
+        return "bulk" if row_bytes >= cls.BULK_MIN_ROW_BYTES else "lanes"
+
+    @staticmethod
+    def bulk_index_stride(chunk: int) -> int:
+        """Indices in each half of the bulk path's double buffer: a window's
+        16-byte covering span (``chunk`` + 8) rounded up to a multiple of 4,
+        so that the second half starts 16-byte aligned."""
+        return -(-(chunk + 8) // 4) * 4
+
+    @classmethod
+    def bulk_shared_bytes(cls, k_inflight: int, row_bytes: int, chunk: int) -> int:
+        """One bulk block's shared memory: the ring, the double index buffer
+        and the barriers (as ``csrc/row_gather.cu`` lays it out)."""
+        return k_inflight * row_bytes + 2 * cls.bulk_index_stride(chunk) * 4 + (k_inflight + 2) * 8
+
+    @classmethod
+    def grid(cls, n_index_blocks: int, sm_count: int, shared_bytes: int) -> int:
+        """Persistent blocks of the bulk path: BULK_BLOCKS_PER_SM on each SM
+        (fewer where their shared memory does not fit), never more than
+        there are index blocks."""
+        per_sm = max(1, min(cls.BULK_BLOCKS_PER_SM, cls.SHARED_BYTES_PER_SM // shared_bytes))
+        return max(1, min(n_index_blocks, per_sm * sm_count))
+
+    def _sms(self, device: torch.device) -> int:
+        if device not in self._sm_count:
+            self._sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        return self._sm_count[device]
+
     def __call__(self, table, idx, k_inflight: int = 8, chunk: int = 1024) -> torch.Tensor:
-        modes = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+        # Kept lean: at the probe's shapes the host time before the launch is
+        # part of every one-call time.
+        if k_inflight not in self.K_INFLIGHT or not 0 < chunk <= self.MAX_CHUNK:
+            raise ValueError(f"row_gather: k_inflight in {self.K_INFLIGHT}, "
+                             f"0 < chunk <= {self.MAX_CHUNK}")
         _check_cuda("row_gather", table, idx)
-        if table.dtype not in modes or idx.dtype != torch.int32:
+        mode = self._MODE_OF.get(table.dtype)
+        if mode is None or idx.dtype != torch.int32:
             raise TypeError(f"row_gather takes a bf16 or f32 table and int32 indices, got "
                             f"{table.dtype} / {idx.dtype}")
         if table.dim() < 2 or not table.is_contiguous() or idx.dim() != 1 or not idx.is_contiguous():
             raise ValueError("row_gather takes a contiguous [N, ...] table and [n] indices")
-        row_bytes = table[0].numel() * table.element_size()
+        row_bytes = table.stride(0) * table.element_size()
         if row_bytes % 16 or table.data_ptr() % 16:
             raise ValueError(f"row_gather rows must be 16-byte multiples, got {row_bytes} B")
-        if k_inflight not in self.K_INFLIGHT or not 0 < chunk <= self.MAX_CHUNK:
-            raise ValueError(f"row_gather: k_inflight in {self.K_INFLIGHT}, "
-                             f"0 < chunk <= {self.MAX_CHUNK}")
+        path = self.path(row_bytes)
         n = idx.numel()
         if n % chunk:
             raise ValueError(f"row_gather needs n % chunk == 0, got {n} % {chunk}")
-        mode = modes[table.dtype]
-        lib = self.load()
-        out = torch.empty((n, *table.shape[1:]), dtype=table.dtype, device=table.device)
-        with torch.cuda.device(table.device):
+        dev = table.device
+        blocks = 0
+        if path == "bulk":
+            shared = self.bulk_shared_bytes(k_inflight, row_bytes, chunk)
+            if shared > self.SHARED_BYTES_PER_SM:
+                raise ValueError(f"row_gather: {k_inflight} rows of {row_bytes} B and chunk "
+                                 f"{chunk} need {shared} bytes of shared memory")
+            blocks = self.grid(n // chunk, self._sms(dev), shared)
+        lib = self._lib or self.load()
+        out = torch.empty((n, *table.shape[1:]), dtype=table.dtype, device=dev)
+        with _on_device(dev):
             rc = lib.row_gather(
                 table.data_ptr(), idx.data_ptr(), n, row_bytes, k_inflight, chunk,
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                path == "bulk", blocks, out.data_ptr(), _raw_stream(dev),
             )
         if rc != 0:
             raise RuntimeError(f"row_gather launch failed: cudaError {rc}")
@@ -382,10 +486,9 @@ class LaneGatherKernel(_Kernel):
             raise ValueError(f"lane_gather takes a 16-byte aligned multiple of 8 indices, got {n}")
         lib = self.load()
         out = torch.empty(d, n, dtype=torch.bfloat16, device=tab.device)
-        with torch.cuda.device(tab.device):
+        with _on_device(tab.device):
             rc = lib.lane_gather_bf16(
-                tab.data_ptr(), ni, d, idx.data_ptr(), n, out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream,
+                tab.data_ptr(), ni, d, idx.data_ptr(), n, out.data_ptr(), _raw_stream(tab.device),
             )
         if rc != 0:
             raise RuntimeError(f"lane_gather launch failed: cudaError {rc}")

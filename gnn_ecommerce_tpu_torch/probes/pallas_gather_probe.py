@@ -2,8 +2,9 @@
 
 The script measured whether explicit per-row DMAs, K in flight, beat XLA's
 arbitrary-row gather. Here the baseline is ``index_select`` and the kernel
-is K4 (``csrc/row_gather.cu``), ``k_inflight`` 16-byte loads per lane in
-flight over blocks of ``chunk`` rows:
+is K4 (``csrc/row_gather.cu``), ``k_inflight`` rows in flight over index
+blocks of ``chunk`` rows (4 KB rows by bulk-copy row DMAs, 256-byte rows by
+16-byte lane loads):
 
 - phase A, the production-shaped [1,639,358, 128] bf16 table and 10,156,032
   indices: the baseline (``xla_take_bf16_128``) and K4 on the same rows
@@ -35,6 +36,8 @@ N_ROWS = 1_639_358
 N_GATHER = 10_157_407
 D = 128
 TILE_ROW = (8, 128)  # one f32 (8, 128) tile, 4 KB
+# Phase B's K4 configurations, (k_inflight, chunk), in the script's order.
+CONFIGS = ((4, 1024), (8, 1024), (8, 2048), (16, 1024))
 
 
 def shapes(device: torch.device) -> dict:
@@ -89,19 +92,18 @@ def main(device="cuda", *, reps: int = 3) -> dict:
         assert torch.equal(got, torch.index_select(table_t, 0, small_idx))
         res["per_row_kernel_correct"] = True
 
-        for k in (4, 8, 16):
-            for chunk in ((1024, 2048) if k == 8 else (1024,)):
-                label = f"pallas_dma_k{k}_c{chunk}"
+        for k, chunk in CONFIGS:
+            label = f"pallas_dma_k{k}_c{chunk}"
 
-                def one(k=k, chunk=chunk):
-                    t0 = time.perf_counter()
-                    check_exact(table_t, idx_t, k, chunk)
-                    first_call_s = time.perf_counter() - t0
-                    ms = probe.time(lambda: row_gather(table_t, idx_t, k_inflight=k, chunk=chunk))
-                    record(label, ms, n, row_bytes, first_call_s=first_call_s,
-                           vs_take=take_ms / ms, exact=True)
+            def one(k=k, chunk=chunk):
+                t0 = time.perf_counter()
+                check_exact(table_t, idx_t, k, chunk)
+                first_call_s = time.perf_counter() - t0
+                ms = probe.time(lambda: row_gather(table_t, idx_t, k_inflight=k, chunk=chunk))
+                record(label, ms, n, row_bytes, first_call_s=first_call_s,
+                       vs_take=take_ms / ms, exact=True)
 
-                probe.section(label, one)
+            probe.section(label, one)
 
     probe.section("phase_b", phase_b)
     res["note"] = (
