@@ -52,8 +52,11 @@ Phases, one printed line each (plus detail lines):
               [1,639,358, 128] bf16 rows and [524,288, 8, 128] f32 tile
               rows, exact at every (k_inflight, chunk) the probe times, and
               at odd chunks that walk a bulk block through several index
-              windows; K5 and K6 (csrc/lane_gather.cu) on an
-              [80, 54,571] bf16 table with 10,153,984 indices; each against
+              windows; K5 and K6 (csrc/lane_gather.cu: a transposed
+              table in L2, windows of indices) exact on edge cases (d 1 to
+              200, ragged and many windows, both layouts, indices 16 bytes
+              into a buffer) and on an [80, 54,571] bf16 table with
+              10,153,984 indices; each against
               its plain version (exact for the gathers) with kernel, plain
               and library times, per-pass device times, the bound and
               yardsticks (K2: torch.segment_reduce over the real arcs; K4: a
@@ -336,34 +339,36 @@ def device_profile(label: str, fn, top: int = 6) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} {e.key[:90]}")
 
 
-def pass_times(fn, names: dict, label: str = "", calls: int = 5) -> dict | None:
+def pass_times(fn, names: dict, label: str = "", calls: int = 5, attempts: int = 3) -> dict | None:
     """Device ms per call of each pass of ``fn``, over ``calls`` calls under
     torch.profiler. ``names`` maps a key of each pass's kernel symbol to the
-    pass's short name; every pass launches once a call. None unless the
-    profiler recorded each pass exactly ``calls`` times and no other kernel:
-    it has dropped kernels in a session, and a missing launch is not made
-    up (a printed line says so, after ``label``)."""
+    pass's short name; every pass launches once a call. None unless, in one
+    of ``attempts`` fresh profiles, the profiler recorded each pass exactly
+    ``calls`` times and no other kernel: it has dropped kernels before,
+    and a missing launch is not made up (a printed line says so, after
+    ``label``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ms, counts = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or not e.count:
-            continue
-        short = next((s for key, s in names.items() if key in e.key), e.key[:60])
-        ms[short] = ms.get(short, 0.0) + e.self_device_time_total / 1e3
-        counts[short] = counts.get(short, 0) + e.count
-    if counts != {short: calls for short in names.values()}:
-        print(f"  {label} passes not measured: launches recorded in {calls} calls {counts}, "
-              f"expected each of {sorted(names.values())} {calls} times", flush=True)
-        return None
-    return {short: total / calls for short, total in ms.items()}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms, counts = {}, {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or not e.count:
+                continue
+            short = next((s for key, s in names.items() if key in e.key), e.key[:60])
+            ms[short] = ms.get(short, 0.0) + e.self_device_time_total / 1e3
+            counts[short] = counts.get(short, 0) + e.count
+        if counts == {short: calls for short in names.values()}:
+            return {short: total / calls for short, total in ms.items()}
+    print(f"  {label} passes not measured: launches recorded in {calls} calls {counts} (the last of "
+          f"{attempts} profiles), expected each of {sorted(names.values())} {calls} times", flush=True)
+    return None
 
 
 def plan_stats(plan) -> dict:
@@ -834,25 +839,68 @@ def check_row_gather_cases(dev: torch.device, seed: int) -> None:
 
 
 def check_lane_gather(name: str, replaces: str, tab: torch.Tensor, idx: torch.Tensor, layout: str) -> dict:
-    """K5 or K6 against ``tab[:, idx]``: equal bytes."""
+    """K5 or K6 against ``tab[:, idx]``: equal bytes. Times: one call
+    (kernel_ms, both passes and the wrapper), each pass's device time and
+    their sum (device_ms), the plain version, ``index_select`` along dim 1 (library_ms) and
+    ``zero_`` of an output-sized buffer (fill_ms), the card's rate for
+    writing these bytes with nothing read."""
     assert torch.equal(LANE_GATHER(tab, idx, layout), lane_gather_plain(tab, idx))
     kernel_ms = time_ms(lambda: LANE_GATHER(tab, idx, layout))
     plain_ms = time_ms(lambda: lane_gather_plain(tab, idx))
     flat = idx.reshape(-1)
     library_ms = time_ms(lambda: torch.index_select(tab, 1, flat))
     d, n = tab.shape[0], flat.numel()
+    sink = torch.empty(d, n, dtype=torch.bfloat16, device=tab.device)
+    fill_ms = time_ms(sink.zero_)
+    del sink
+    passes = named_passes(name, lambda: LANE_GATHER(tab, idx, layout), LANE_GATHER.PASSES)
+    device_ms = sum(passes.values()) if passes else None
     uniq = torch.unique(flat).numel()
     bytes_once = uniq * d * 2 + n * 4 + d * n * 2
     row = kernel_row(
         name, "gnn_ecommerce_tpu_torch/csrc/lane_gather.cu", replaces,
         0.0, kernel_ms, plain_ms, library_ms, bytes_once, 0, n=n, index_shape=list(idx.shape),
+        device_ms=device_ms, pass_ms=passes, fill_ms=fill_ms,
     )
     print(
         f"  {name}: tab {tuple(tab.shape)} idx {tuple(idx.shape)} exact kernel_ms {kernel_ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {row['bound_ms']:.4f}",
+        f"device_ms {'not measured' if device_ms is None else f'{device_ms:.4f}'} "
+        f"plain_ms {plain_ms:.4f} library_ms (index_select) "
+        f"{library_ms:.4f} fill_ms {fill_ms:.4f} bound_ms {row['bound_ms']:.4f} "
+        f"({d * n * 2 / kernel_ms / 1e9:.1f} TB/s written)",
         flush=True,
     )
     return row
+
+
+def check_lane_gather_cases(dev: torch.device, seed: int) -> None:
+    """K5/K6 byte-equal to ``lane_gather_plain`` at the shapes its CPU
+    emulation covers: d 1, 7, 80 and 200 (one band, two bands), tables of
+    1, 1,000 and 54,571 items, index counts that make one short window, one
+    window less 8, one more 8, three more 8 (a ragged last window) and more
+    windows than the grid has blocks (each block walks several windows
+    through both buffers), in both layouts, with the indices at offsets 0
+    and 16 bytes into a buffer."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    j = LANE_GATHER.WINDOW
+    counts = {"1xn": (8, j - 8, j + 8, 3 * j + 8, 400 * j + 8), "8x512": (4096, 4096 * 30)}
+    held = 0
+    for d in (1, 7, 80, 200):
+        for ni in (1, 1000, 54_571):
+            tab = torch.randn(d, ni, generator=gen, device=dev).to(torch.bfloat16)
+            for layout, ns in counts.items():
+                for n in ns:
+                    buf = torch.randint(0, ni, (n + 4,), generator=gen, device=dev, dtype=torch.int32)
+                    buf[0], buf[n - 1], buf[4], buf[n + 3] = 0, ni - 1, 0, ni - 1
+                    for offset in (0, 4):
+                        flat = buf[offset : offset + n]
+                        idx = flat.reshape(1, -1) if layout == "1xn" else flat.reshape(-1, 512)
+                        got = LANE_GATHER(tab, idx, layout)
+                        assert torch.equal(got, lane_gather_plain(tab, idx)), (d, ni, layout, n, offset)
+                        held += 1
+    torch.cuda.synchronize()
+    print(f"  K5/K6 cases (d 1, 7, 80, 200 x ni 1, 1000, 54571 x n {counts}, indices at offsets 0 "
+          f"and 16 B): {held} calls held", flush=True)
 
 
 def probe_kernel_rows(dev: torch.device, seed: int) -> list:
@@ -889,6 +937,7 @@ def probe_kernel_rows(dev: torch.device, seed: int) -> list:
     del table, idx
     torch.cuda.empty_cache()
 
+    check_lane_gather_cases(dev, seed)
     tile = microbench_gather.TILE
     idx = torch.from_numpy(item_src[: E // tile * tile]).to(dev)
     tab = torch.randn(80, NI, generator=gen, device=dev, dtype=torch.bfloat16)

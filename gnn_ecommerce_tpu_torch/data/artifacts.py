@@ -72,18 +72,19 @@ def save_prepared(prepared: PreparedData, directory: str) -> str:
     return mpath
 
 
-def load_prepared(directory: str) -> PreparedData:
-    """Load a prepared dir, refusing an npz whose sha256 differs from the
-    manifest's."""
+def load_prepared(directory: str, verify: bool = True) -> PreparedData:
+    """Load a prepared dir. With ``verify``, refuse an npz whose sha256
+    differs from the manifest's; without it, skip the hash."""
     with open(os.path.join(directory, MANIFEST)) as f:
         manifest = json.load(f)
     path = os.path.join(directory, ARRAYS)
-    have = _sha256(path)
-    want = manifest["files"][ARRAYS]["sha256"]
-    if have != want:
-        raise ValueError(
-            f"{path}: sha256 mismatch (manifest {want[:12]}…, file {have[:12]}…)"
-        )
+    if verify:
+        have = _sha256(path)
+        want = manifest["files"][ARRAYS]["sha256"]
+        if have != want:
+            raise ValueError(
+                f"{path}: sha256 mismatch (manifest {want[:12]}…, file {have[:12]}…)"
+            )
     with np.load(path) as data:
         a = {name: data[name] for name in _FIELDS}
     return PreparedData(

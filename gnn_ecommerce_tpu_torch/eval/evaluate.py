@@ -11,6 +11,9 @@ user's mask to its width. The JAX package also pads each bucket's rows and
 truth width to powers of two; that only bounds the TPU's compiled shapes and
 is dropped here. The means stay user-weighted, so the bucketed result equals
 the single-batch :func:`evaluate`.
+
+The signatures are the JAX package's, positions included: ``item_tile`` is
+unused and every ``topk_impl`` is exact (``ops/topk_score.py``).
 """
 from __future__ import annotations
 
@@ -98,7 +101,9 @@ def evaluate(
     n_users: int,
     k: int = 20,
     user_tile: int = 1024,
+    item_tile: int = 8192,
     mask_mode: str = "neginf",
+    topk_impl: str = "exact",
 ):
     """Recall/Precision@K over an eval batch from the propagated
     [n_users + n_items, D] embedding. Returns (precision, recall,
@@ -110,7 +115,7 @@ def evaluate(
         hi = lo + user_tile
         _, idx = topk_scores(
             final_emb.index_select(0, batch.user_ids[lo:hi]), item_emb,
-            batch.mask[lo:hi], k, mask_mode,
+            batch.mask[lo:hi], k, item_tile, mask_mode, topk_impl,
         )
         recall, precision = recall_precision_at_k(idx, batch.truth[lo:hi], k)
         idx_parts.append(idx)
@@ -135,13 +140,17 @@ def evaluate_bucketed(
     n_users: int,
     k: int = 20,
     user_tile: int = 1024,
+    item_tile: int = 8192,
     mask_mode: str = "neginf",
+    topk_impl: str = "exact",
 ) -> tuple[float, float]:
     """Mean (precision, recall) over a bucketed split, user-weighted."""
     tot_p = tot_r = 0.0
     tot_n = 0
     for batch in buckets:
-        p, r, _, _, _ = evaluate(final_emb, batch, n_users, k, user_tile, mask_mode)
+        p, r, _, _, _ = evaluate(
+            final_emb, batch, n_users, k, user_tile, item_tile, mask_mode, topk_impl
+        )
         tot_p += p * batch.num_users
         tot_r += r * batch.num_users
         tot_n += batch.num_users
@@ -154,6 +163,7 @@ def recommend_users(
     mask_idx,
     n_users: int,
     k: int = 20,
+    item_tile: int = 8192,
     mask_mode: str = "neginf",
 ) -> np.ndarray:
     """Top-K local item ids [B, k] for ``user_ids`` from the propagated
@@ -162,6 +172,6 @@ def recommend_users(
     ids = torch.as_tensor(np.asarray(user_ids), dtype=torch.int64, device=dev)
     mask = torch.as_tensor(np.asarray(mask_idx), device=dev)
     _, idx = topk_scores(
-        final_emb.index_select(0, ids), final_emb[n_users:], mask, k, mask_mode
+        final_emb.index_select(0, ids), final_emb[n_users:], mask, k, item_tile, mask_mode
     )
     return idx.cpu().numpy()

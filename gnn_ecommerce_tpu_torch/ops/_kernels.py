@@ -461,15 +461,30 @@ class LaneGatherKernel(_Kernel):
     """``csrc/lane_gather.cu``: ``out[r, j] = tab[r, idx[j]]`` for a [d, ni]
     bf16 table. One CUDA kernel serves K5 (indices [1, n], mode ``"1xn"``)
     and K6 (indices [n/512, 512], mode ``"8x512"``): both layouts are the
-    same contiguous index stream. The modes count K5's and K6's launches."""
+    same contiguous index stream. The modes count K5's and K6's launches.
+
+    One call launches each of two passes once (``PASSES``: a key of each
+    pass's kernel symbol -> the pass): the transpose of the table into the
+    [ni, dp] scratch this wrapper allocates (dp: :meth:`padded_rows`), and
+    the gather over windows of WINDOW indices and bands of at most
+    BAND_ROWS table rows."""
 
     STEM = "lane_gather"
     MODES = ("1xn", "8x512")
+    PASSES = {"transpose_pad": "transpose", "gather_windows": "gather"}
+    WINDOW = 256
+    BAND_ROWS = 128
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.lane_gather_bf16.argtypes = [ptr, i64, ctypes.c_int, ptr, i64, ptr, ptr]
+        lib.lane_gather_bf16.argtypes = [ptr, i64, ctypes.c_int, ptr, i64, ptr, ptr, ptr]
         lib.lane_gather_bf16.restype = ctypes.c_int
+
+    @staticmethod
+    def padded_rows(d: int) -> int:
+        """dp: the transposed table's row length, d rounded up to 8 (each
+        item's column one 16-byte aligned row)."""
+        return -(-d // 8) * 8
 
     def __call__(self, tab, idx, layout: str) -> torch.Tensor:
         if layout not in self.MODES:
@@ -484,11 +499,15 @@ class LaneGatherKernel(_Kernel):
         n = idx.numel()
         if n % 8 or idx.data_ptr() % 16:
             raise ValueError(f"lane_gather takes a 16-byte aligned multiple of 8 indices, got {n}")
-        lib = self.load()
         out = torch.empty(d, n, dtype=torch.bfloat16, device=tab.device)
+        if n == 0:
+            return out
+        lib = self._lib or self.load()
+        tab_t = torch.empty(ni, self.padded_rows(d), dtype=torch.bfloat16, device=tab.device)
         with _on_device(tab.device):
             rc = lib.lane_gather_bf16(
-                tab.data_ptr(), ni, d, idx.data_ptr(), n, out.data_ptr(), _raw_stream(tab.device),
+                tab.data_ptr(), ni, d, idx.data_ptr(), n, tab_t.data_ptr(), out.data_ptr(),
+                _raw_stream(tab.device),
             )
         if rc != 0:
             raise RuntimeError(f"lane_gather launch failed: cudaError {rc}")

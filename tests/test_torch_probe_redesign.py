@@ -1,11 +1,12 @@
-"""The Hopper designs of K2 (csrc/tile_segreduce.cu) and K4
-(csrc/row_gather.cu), emulated on the CPU.
+"""The Hopper designs of K2 (csrc/tile_segreduce.cu), K4
+(csrc/row_gather.cu) and K5/K6 (csrc/lane_gather.cu), emulated on the CPU.
 
 The kernels run only on the card; here their fixed orders and schedules are
 emulated in numpy from the same host-side choices the wrappers make (vector
 width, lane groups, row bands, persistent grid, path by row bytes). K2's summation order is held to its plain version and to the probe
 script's Pallas kernel in interpret mode; K4's walk is held to cover every
-row once with every index it stages."""
+row once with every index it stages; K5/K6's transposed-table window walk
+is held to write every output element once, equal to ``tab[:, idx]``."""
 import functools
 import importlib.util
 import pathlib
@@ -16,7 +17,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from gnn_ecommerce_tpu_torch.ops._kernels import ROW_GATHER, TILE_SEGREDUCE
+from gnn_ecommerce_tpu_torch.ops._kernels import LANE_GATHER, ROW_GATHER, TILE_SEGREDUCE
 from gnn_ecommerce_tpu_torch.probes import kernels as pk
 from gnn_ecommerce_tpu_torch.probes.proto_segreduce import build_plan
 
@@ -322,3 +323,235 @@ def test_row_gather_arguments_are_checked(kwargs, match):
     with pytest.raises(ValueError, match=match):
         ROW_GATHER(torch.zeros(4, 8), torch.zeros(1024, dtype=torch.int32), **kwargs)
     assert ROW_GATHER.launches == before
+
+
+# ------------------------------------------------- K5/K6 (csrc/lane_gather.cu)
+
+LANE_THREADS = 256  # the gather pass's threads a block
+
+
+def _byte_perm(x, y, sel: int):
+    """CUDA's __byte_perm on uint32 arrays: result byte i is byte
+    (sel >> 4i) & 7 of the 8 bytes (y << 32) | x."""
+    both = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros(x.shape, np.uint64)
+    for i in range(4):
+        src = (sel >> (4 * i)) & 7
+        out |= ((both >> np.uint64(8 * src)) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _max_way(groups, addrs) -> int:
+    """The most distinct 16-byte piece addresses that one group (a quarter
+    warp's one instruction) puts on one of the 8 16-byte bank groups."""
+    pairs = np.unique(np.stack([groups, addrs]), axis=1)
+    _, counts = np.unique(np.stack([pairs[0], pairs[1] % 8]), axis=1, return_counts=True)
+    return int(counts.max())
+
+
+class _Buffers:
+    """The order rules of the gather pass's double buffers: a cp.async lands
+    at the next wait and is seen by every thread after the barrier that
+    follows it; a buffer read since the last barrier takes no copy."""
+
+    def __init__(self):
+        self.tag, self.state, self.read_since_sync = {}, {}, set()
+
+    def copy(self, key, win):
+        assert key not in self.read_since_sync, f"{key} refilled while it may still be read"
+        self.tag[key], self.state[key] = win, "pending"
+
+    def wait_all(self):
+        self.state = {k: "landed" if s == "pending" else s for k, s in self.state.items()}
+
+    def sync(self):
+        self.state = {k: "seen" if s == "landed" else s for k, s in self.state.items()}
+        self.read_since_sync.clear()
+
+    def read(self, key, win):
+        assert self.state.get(key) == "seen" and self.tag[key] == win, (key, win, self.tag.get(key))
+        self.read_since_sync.add(key)
+
+
+def lane_bands(d: int) -> list:
+    """(first row, rows) of each band of the padded table: BAND_ROWS rows
+    each but the last, one grid row of the gather pass each."""
+    dp = LANE_GATHER.padded_rows(d)
+    return [(r0, min(LANE_GATHER.BAND_ROWS, dp - r0)) for r0 in range(0, dp, LANE_GATHER.BAND_ROWS)]
+
+
+def lane_gather_emulate(tab, idx, blocks: int):
+    """csrc/lane_gather.cu's two passes in numpy, on uint16 patterns: the
+    transpose into [ni, dp] (pad zero), then per band and block of the
+    persistent grid its walk over windows x, x + G, ... with the double
+    buffers' order checked (:class:`_Buffers`), the fill walk stepped per
+    thread as the kernel steps it, the rotated tile layout, and the 8x8
+    byte-permute transpose. Returns (out, writes per element, the most
+    pieces a quarter warp's fill and read instructions put on one bank
+    group, per band's pieces a row P)."""
+    d, ni = tab.shape
+    n = len(idx)
+    dp = LANE_GATHER.padded_rows(d)
+    tab_t = np.zeros((ni, dp), np.uint16)
+    tab_t[:, :d] = tab.T
+    out = np.zeros((d, n), np.uint16)
+    writes = np.zeros((d, n), np.int64)
+    window = LANE_GATHER.WINDOW
+    log2_jb = window.bit_length() - 1 - 3
+    n_windows = -(-n // window)
+    pmax = lane_bands(d)[0][1] // 8
+    ways = {}
+    for r0, rows in lane_bands(d):
+        P = rows // 8
+        rotate = P >= 8
+        fill_ways = read_ways = 1
+        for x in range(min(blocks, n_windows)):
+            bufs = _Buffers()
+            idx_s = np.zeros((2, window), np.int64)
+            tile = np.zeros((2, window * pmax, 8), np.uint16)
+            tid = np.arange(LANE_THREADS)
+
+            def rows_in(win):
+                return min(window, n - win * window)
+
+            def load_idx(win, b):
+                bufs.copy(("idx", b), win)
+                jn = rows_in(win)
+                assert jn % 4 == 0  # whole 16-byte pieces
+                idx_s[b, :jn] = idx[win * window : win * window + jn]
+
+            def load_rows(win, b):
+                nonlocal fill_ways
+                bufs.read(("idx", b), win)
+                bufs.copy(("tile", b), win)
+                jn = rows_in(win)
+                filled = np.zeros(jn * P, np.int64)
+                jj, c = tid // P, tid % P
+                djj, dc = LANE_THREADS // P, LANE_THREADS % P
+                while (jj < jn).any():
+                    live = jj < jn
+                    j, cc = jj[live], c[live]
+                    ph = cc + ((j >> 3) & 7 if rotate else 0)
+                    ph = np.where(ph >= P, ph - P, ph)
+                    assert (ph < P).all()
+                    slot = j * P + ph
+                    np.add.at(filled, slot, 1)
+                    tile[b, slot] = tab_t[idx_s[b, j][:, None], r0 + 8 * cc[:, None] + np.arange(8)]
+                    fill_ways = max(fill_ways, _max_way(tid[live] // 8, slot))
+                    jj, c = jj + djj, c + dc
+                    wrap = c >= P
+                    c, jj = np.where(wrap, c - P, c), np.where(wrap, jj + 1, jj)
+                assert (filled == 1).all()  # every piece of the window, once
+
+            def store(win, b):
+                nonlocal read_ways
+                bufs.read(("tile", b), win)
+                jn, j0 = rows_in(win), win * window
+                u = np.arange(P << log2_jb)
+                rb, jb = u >> log2_jb, u & ((1 << log2_jb) - 1)
+                live = 8 * jb < jn
+                u, rb, jb = u[live], rb[live], jb[live]
+                ph = rb + (jb & 7 if rotate else 0)
+                ph = np.where(ph >= P, ph - P, ph)
+                slots = (8 * jb[:, None] + np.arange(8)) * P + ph[:, None]  # [U, v]
+                for v in range(8):  # one 16-byte read instruction each
+                    read_ways = max(read_ways, _max_way((u // LANE_THREADS) * 32 + (u % LANE_THREADS) // 8,
+                                                        slots[:, v]))
+                block = tile[b, slots].astype(np.uint32)  # [U, v = j, 8 table rows]
+                a = block[..., 0::2] | (block[..., 1::2] << 16)  # [U, v, word m]
+                for q in range(8):
+                    r = r0 + 8 * rb + q
+                    sel = 0x7632 if q & 1 else 0x5410
+                    words = np.stack([_byte_perm(a[:, 2 * k, q >> 1], a[:, 2 * k + 1, q >> 1], sel)
+                                      for k in range(4)], axis=1)
+                    vals = np.stack([words & 0xFFFF, words >> 16], axis=2).reshape(-1, 8).astype(np.uint16)
+                    keep = r < d
+                    cols = j0 + 8 * jb[keep, None] + np.arange(8)
+                    out[r[keep, None], cols] = vals[keep]
+                    np.add.at(writes, (np.broadcast_to(r[keep, None], cols.shape), cols), 1)
+
+            w = x
+            load_idx(w, 0)
+            bufs.wait_all()
+            bufs.sync()
+            load_rows(w, 0)
+            if w + blocks < n_windows:
+                load_idx(w + blocks, 1)
+            b = 0
+            while True:
+                bufs.wait_all()
+                bufs.sync()
+                nxt = w + blocks
+                if nxt < n_windows:
+                    load_rows(nxt, b ^ 1)
+                    if nxt + blocks < n_windows:
+                        load_idx(nxt + blocks, b)
+                store(w, b)
+                if nxt >= n_windows:
+                    break
+                bufs.sync()
+                w, b = nxt, b ^ 1
+        ways[P] = (fill_ways, read_ways)
+    return out, writes, ways
+
+
+def _lane_case(seed: int, d: int, ni: int, n: int):
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(0, 1 << 16, (d, ni), dtype=np.uint16)
+    idx = rng.integers(0, ni, n).astype(np.int32)
+    idx[0], idx[-1] = 0, ni - 1
+    return tab, idx
+
+
+J = LANE_GATHER.WINDOW
+
+
+@pytest.mark.parametrize("n", [8, J - 8, J + 8, 3 * J + 8])
+@pytest.mark.parametrize("d", [1, 7, 8, 80, 129, 200])
+def test_lane_gather_walk_writes_each_element_once(d, n):
+    """Bands of at most 128 rows, windows of J with a ragged last one, two
+    blocks a band walking their windows through both buffers: each output
+    element is written once and equals tab[:, idx]; the gather pass reads
+    the index stream once per band."""
+    tab, idx = _lane_case(d * 1000 + n, d, 1000, n)
+    out, writes, _ = lane_gather_emulate(tab, idx, blocks=2)
+    np.testing.assert_array_equal(writes, 1)
+    np.testing.assert_array_equal(out, tab[:, idx])
+    assert len(lane_bands(d)) == -(-d // 128)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 5, 40])
+@pytest.mark.parametrize("d", [16, 80, 136])
+def test_lane_gather_walk_other_grids(d, blocks):
+    """Grids of one block (every window through one block's two buffers)
+    to more blocks than windows: the same result."""
+    tab, idx = _lane_case(blocks + d, d, 300, 5 * J + 40)
+    out, writes, _ = lane_gather_emulate(tab, idx, blocks)
+    np.testing.assert_array_equal(writes, 1)
+    np.testing.assert_array_equal(out, tab[:, idx])
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 200])
+def test_lane_gather_tile_rotation_keeps_bank_conflicts_low(d):
+    """With P >= 8 pieces a row the rotated tile gives a quarter warp's
+    16-byte reads at most 2 pieces to a bank group (none shared when
+    P % 8 == 0), and its fills at most 2."""
+    tab, idx = _lane_case(d, d, 500, 2 * J)
+    _, _, ways = lane_gather_emulate(tab, idx, blocks=1)
+    for p, (fill, read) in ways.items():
+        assert fill <= 2 and read <= (1 if p % 8 == 0 else 2), (p, fill, read)
+
+
+def test_lane_gather_shared_memory_fits_at_every_d():
+    """The gather block's shared memory (two windows of indices, two tiles
+    of the widest band) fits a block's 227 KB at any d, as the kernel
+    assumes; at the probes' d = 80 (one band of 80 rows, 160-byte
+    transposed rows) it is 82 KB, two blocks an SM."""
+    def shared(d):
+        return 2 * J * 4 + 2 * J * lane_bands(d)[0][1] * 2
+
+    assert LANE_GATHER.padded_rows(80) == 80 and lane_bands(80) == [(0, 80)]
+    assert LANE_GATHER.padded_rows(7) == 8 and lane_bands(200) == [(0, 128), (128, 72)]
+    per_sm, reserved = 233_472, 1024  # an SM's shared memory, a block's reserve
+    assert shared(80) == 83_968 and 2 * (shared(80) + reserved) <= per_sm < 3 * (shared(80) + reserved)
+    assert max(shared(d) for d in (1, 128, 129, 65_535)) == shared(128) <= 232_448
