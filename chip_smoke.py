@@ -62,9 +62,26 @@ Phases, one printed line each (plus detail lines):
               yardsticks (K2: torch.segment_reduce over the real arcs; K4: a
               contiguous copy of the same bytes); here, counted from 0, each
               probe module's main at its full shapes
+ 12 cli       (runs before 11) the entry points as a user runs them, in a
+              temporary directory: the port's synthetic_events makes the
+              clustered corpus at 1/10 of the full scale (163,936 users,
+              5,457 items, 2,069,284 events over 1,015,741 pairs, 77
+              clusters, affinity 0.85, item skew 0.9, seed 42) into an
+              event CSV; cli.preprocess turns it into an edges CSV through
+              the native reader (held equal to events_to_edges in memory);
+              cli.train --edges trains 2 epochs at dim 90 / 5 layers / bf16 /
+              16,384 head; the manifest, both checkpoints, two epoch records,
+              a falling finite loss, no dropped arcs and a best val R@20 at
+              least 3x the popularity baseline's on the same split are
+              checked; ETL (from the training log), B_ii, epoch and eval
+              seconds and the val R@20 curve on the detail line; then, after
+              the path's launches are read, K1 bf16 and its cast are held
+              against their plain versions at the path's own shapes (the
+              best checkpoint's user table over the tail plan that
+              train/driver.py builds from the saved artifact)
  11 kernels   one JSON line of the port's kernels, with their launches on
-              the paths of phases 4-6, 7, 8, 9 and 10 (each counted from 0
-              just before the path and read just after)
+              the paths of phases 4-6, 7, 8, 9, 10 and 12 (each counted from
+              0 just before the path and read just after)
 The last line is {"ok": true, "device": {...}}. Any failed check raises.
 Without CUDA, or without the repository around this file, it exits non-zero
 and prints no result.
@@ -74,6 +91,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -85,8 +103,14 @@ import urllib.request
 import numpy as np
 import torch
 
+from gnn_ecommerce_tpu_torch.cli import preprocess as preprocess_cli
+from gnn_ecommerce_tpu_torch.cli import train as train_cli
+from gnn_ecommerce_tpu_torch.data.artifacts import load_prepared
+from gnn_ecommerce_tpu_torch.data.events import EVENT_TYPE_WEIGHTS_V1, events_to_edges, read_csv
 from gnn_ecommerce_tpu_torch.data.prepare import CsrList, EvalSplit, PreparedData, SamplerArrays
+from gnn_ecommerce_tpu_torch.data.synthetic import synthetic_events
 from gnn_ecommerce_tpu_torch.device import mm_f32, resolve_device
+from gnn_ecommerce_tpu_torch.eval.baselines import popularity_recall_at_k
 from gnn_ecommerce_tpu_torch.eval.evaluate import build_eval_buckets, evaluate_bucketed
 from gnn_ecommerce_tpu_torch.graph.build import build_graph
 from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, get_embedding, init_params
@@ -103,6 +127,7 @@ from gnn_ecommerce_tpu_torch.ops._kernels import (
 )
 from gnn_ecommerce_tpu_torch.ops.bipartite import (
     build_fast_bipartite,
+    build_fast_ops,
     fast_batch_embeddings,
     fast_get_embedding,
     fast_to_items,
@@ -166,6 +191,20 @@ KERNELS = {
 # and the row above keeps the rest.
 TO_USERS = "tile_segreduce_bf16_to_users"
 TO_USERS_SECTIONS = ("to_users_pallas_bf16", "to_users_pallas_bf16_ch1024")
+# Phase 12's corpus: the clustered corpus of the full-scale quality run
+# (scripts/full_corpus_r3.py) at 1/10 scale, as scripts/corpus_minitrain_r3.py
+# cut it; its best val R@20 must reach CLI_POPULARITY_FACTOR x popularity's.
+CLI_CORPUS = dict(
+    n_users=163_936, n_items=5_457, n_events=2_069_284, n_pairs=1_015_741,
+    n_clusters=77, affinity=0.85, item_skew=0.9, seed=42,
+)
+CLI_TRAIN_ARGS = [
+    "-e", "2", "--dim", str(DIM), "--layers", str(LAYERS), "--fast", "bf16",
+    "--heavy-users", str(HEAVY_USERS),
+]
+CLI_POPULARITY_FACTOR = 3.0
+# What the kernels line keeps of a kernel's check at phase 12's shapes.
+CLI_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
 # Widths of K1's edge cases: with f32, bf16 and padded bf16 tables they take
 # every (vector width, loads per arc) instance of csrc/segreduce.cu.
 K1_CASE_DIMS = (1, 33, 62, 64, 90, 127, 250, 255, 256)
@@ -1067,6 +1106,88 @@ def fixed_batch(prepared: PreparedData, seed: int, dev) -> tuple:
     return tuple(torch.from_numpy(np.asarray(a, np.int64)).to(dev) for a in (s.users[slot], pos, neg))
 
 
+def cli_path(work: str) -> str:
+    """Phase 12: events CSV -> cli.preprocess -> cli.train in ``work`` (the
+    CLI's relative default paths land there). Raises on a failed check;
+    returns the detail line."""
+    t0 = time.perf_counter()
+    events = synthetic_events(**CLI_CORPUS)
+    events_csv, edges_csv = os.path.join(work, "events.csv"), os.path.join(work, "edges.csv")
+    events.to_csv(events_csv)
+    t_gen = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    preprocess_cli.main(["--events", events_csv, "-o", edges_csv])
+    t_pre = time.perf_counter() - t0
+    want = events_to_edges(events, EVENT_TYPE_WEIGHTS_V1)
+    got = read_csv(edges_csv)
+    for col in ("user_id", "item_id", "weight"):
+        a, b = got[col], getattr(want, col)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f"edges CSV column {col} differs"
+    del events, want, got
+
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(work)
+        train_cli.main(["--edges", edges_csv, *CLI_TRAIN_ARGS])
+    finally:
+        os.chdir(cwd)
+    t_train = time.perf_counter() - t0
+
+    data_dir, ckpt = os.path.join(work, "data/prepared"), os.path.join(work, "model-checkpoints")
+    prepared = load_prepared(data_dir)
+    for name in (BEST_NAME, LAST_NAME):
+        leaves, meta = load_checkpoint(ckpt, name)
+        dim = meta["hyperparams"]["latent_dim"]
+        assert meta["num_leaves"] == 4 and leaves[0].shape == (prepared.n_users + prepared.n_items, dim), meta
+    with open(os.path.join(ckpt, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    hist = [r for r in log if "epoch" in r]
+    final = next(r for r in log if "test_recall" in r)
+    etl_s = next(r["etl_s"] for r in log if "etl_s" in r)
+    assert len(hist) == 2, hist
+    assert all(np.isfinite(h["loss"]) for h in hist), hist
+    assert hist[1]["loss"] < hist[0]["loss"], "loss did not fall between the epochs"
+    assert all(h["dropped_arcs"] == 0.0 for h in hist), hist
+    best = max(h["val_recall"] for h in hist)
+    pop = popularity_recall_at_k(prepared, k=20)
+    assert best >= CLI_POPULARITY_FACTOR * pop, (best, pop)
+    b_ii = " ".join(f"{r['item_op_s']:.2f}" for r in log if "item_op_s" in r)
+
+    def per_epoch(key: str, fmt: str) -> str:
+        return " ".join(format(h[key], fmt) for h in hist)
+
+    return (
+        f"users {prepared.n_users} items {prepared.n_items} train edges {len(prepared.edge_user)} "
+        f"val users {len(prepared.val.user_ids)}; events+CSV {t_gen:.2f} s preprocess "
+        f"{t_pre:.2f} s train ETL {etl_s:.2f} s B_ii {b_ii} s epoch_s {per_epoch('epoch_s', '.3f')} "
+        f"eval_s {per_epoch('eval_s', '.3f')} cli.train {t_train:.2f} s; val R@20 "
+        f"{per_epoch('val_recall', '.6f')} (popularity {pop:.6f}, best/popularity "
+        f"{best / pop:.2f}) test R@20 {final['test_recall']:.6f}"
+    )
+
+
+def check_cli_kernels(work: str, dev: torch.device) -> dict:
+    """K1 bf16 and its cast against their plain versions at phase 12's own
+    shapes: the trained user table of the best checkpoint over the tail
+    plan that train/driver.py builds from the saved artifact. Returns each
+    check's kernels-line row by name."""
+    prepared = load_prepared(os.path.join(work, "data/prepared"))
+    graph = build_graph(
+        prepared.edge_user, prepared.edge_item_node, prepared.edge_weight,
+        prepared.n_users, prepared.n_items, items_offset=True, device="cpu",
+    )
+    plan = build_fast_ops(split_graph(graph), "bfloat16", HEAVY_USERS, "bfloat16", dev).items_plan
+    leaves, _ = load_checkpoint(os.path.join(work, "model-checkpoints"), BEST_NAME)
+    E_u = torch.as_tensor(leaves[0][: prepared.n_users], dtype=torch.float32).to(dev)
+    print(f"  cli shapes: [{prepared.n_users}, {E_u.shape[1]}] trained user table", flush=True)
+    with torch.no_grad():
+        cast = check_cast(E_u)
+        k1 = check_kernel("segreduce_bf16", bf16_rows(E_u), plan)
+    return {row["name"]: row for row in (cast, k1)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the corpus and weights")
@@ -1401,6 +1522,24 @@ def main(argv=None) -> int:
     )
     path_launches["probes"] = read_launches(to_users)
     phase(10, "probes", t0)
+
+    # The entry points from an event log, as a user runs them.
+    t0 = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        detail = cli_path(work)
+        path_launches["cli"] = read_launches()
+        cli_rows = check_cli_kernels(work, dev)
+    assert path_launches["cli"]["segreduce_bf16"] >= 1, "cli.train did not launch K1 bf16"
+    for row in rows:
+        if row["name"] in cli_rows:  # the same kernel held at the cli path's shapes
+            row["cli"] = {key: cli_rows[row["name"]][key] for key in CLI_ROW_KEYS}
+    k1_cli = cli_rows["segreduce_bf16"]
+    phase(
+        12, "cli", t0,
+        f"{detail}; at these shapes K1 bf16 max_abs_err {k1_cli['max_abs_err']:.3e} kernel_ms "
+        f"{k1_cli['ms']:.4f} plain_ms {k1_cli['plain_ms']:.4f}, its cast exact",
+    )
 
     t0 = time.perf_counter()
     totals = {name: sum(counts[name] for counts in path_launches.values()) for name in (*KERNELS, TO_USERS)}

@@ -1,0 +1,194 @@
+"""Training CLI (same flags as ``gnn_ecommerce_tpu/cli/train.py``, plus ``--device``).
+
+    python -m gnn_ecommerce_tpu_torch.cli.train --synthetic -e 5
+    python -m gnn_ecommerce_tpu_torch.cli.train --edges u_i_weight.csv -e 20
+    python -m gnn_ecommerce_tpu_torch.cli.train --config framework.yaml
+
+Runs on ``cuda`` unless ``--device cpu`` is given. After the ETL, the
+prepared dataset artifact is saved to ``data_dir`` so that serving can
+start without redoing it; the ETL's seconds are logged in front of the
+training's records. The multi-host flags of the JAX CLI are accepted
+and refused: multi-device training waits for the port's multi-device slice
+(``ROADMAP.md`` §1, item 9), and no host may run as a job of its own.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+from ..data.artifacts import save_prepared
+from ..data.events import Edges, events_to_edges, read_csv
+from ..data.prepare import prepare_splits, split_edges
+from ..data.synthetic import synthetic_events
+from ..train.driver import train
+from .config import FrameworkConfig, WEIGHT_SCHEMES
+from .preprocess import load_events
+
+
+def load_edges(args, cfg: FrameworkConfig) -> Edges:
+    if args.synthetic:
+        events = synthetic_events(
+            n_users=args.synthetic_users,
+            n_items=args.synthetic_items,
+            n_events=args.synthetic_events,
+            seed=cfg.train.seed,
+            n_clusters=args.synthetic_clusters,
+            affinity=args.synthetic_affinity,
+            user_skew=args.synthetic_user_skew,
+            item_skew=args.synthetic_item_skew,
+            n_pairs=args.synthetic_pairs or None,
+        )
+        return events_to_edges(events, cfg.weights())
+    if args.movielens:
+        from ..data.movielens import load_movielens
+
+        return load_movielens(args.movielens)
+    path = args.edges or cfg.edges_path
+    if path:
+        cols = read_csv(path)
+        missing = {"user_id", "item_id", "weight"} - set(cols)
+        if missing:
+            raise SystemExit(f"edges CSV missing columns: {sorted(missing)}")
+        return Edges(cols["user_id"], cols["item_id"], cols["weight"])
+    events_path = args.events or cfg.raw_events_path
+    if events_path:
+        return events_to_edges(load_events(events_path), cfg.weights())
+    raise SystemExit("provide --edges, --events, --synthetic, or config paths")
+
+
+def multi_host_requested(args) -> bool:
+    """Any multi-host signal: the bootstrap flags, or a launcher's
+    environment (JAX's coordinator address, torch's ``WORLD_SIZE > 1``)."""
+    return bool(
+        args.distributed
+        or args.coordinator
+        or (args.num_processes or 0) > 1
+        or args.process_id is not None
+        or os.environ.get("JAX_COORDINATOR_ADDRESS")
+        or int(os.environ.get("WORLD_SIZE", "1")) > 1
+    )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", help="framework YAML config (needs PyYAML)")
+    ap.add_argument("--edges", help="weighted-edge CSV (user_id,item_id,weight)")
+    ap.add_argument("--events", help="raw event CSV (runs the weight pipeline)")
+    ap.add_argument("--movielens", help="MovieLens ratings file (u.data / ratings.dat)")
+    ap.add_argument("--synthetic", action="store_true", help="synthetic dataset")
+    ap.add_argument("--synthetic-users", type=int, default=2000)
+    ap.add_argument("--synthetic-items", type=int, default=300)
+    ap.add_argument("--synthetic-events", type=int, default=30000)
+    ap.add_argument(
+        "--synthetic-clusters", type=int, default=0,
+        help="latent co-clusters (learnable structure; 0 = popularity only)",
+    )
+    ap.add_argument(
+        "--synthetic-pairs", type=int, default=0,
+        help="pin the unique (user,item) pair count (0 = independent draws)",
+    )
+    ap.add_argument(
+        "--synthetic-affinity", type=float, default=0.7,
+        help="P(event stays in the user's cluster) when clusters > 0 "
+        "(0.85 in the full-scale corpus)",
+    )
+    ap.add_argument(
+        "--synthetic-user-skew", type=float, default=0.8,
+        help="zipf exponent for user activity",
+    )
+    ap.add_argument(
+        "--synthetic-item-skew", type=float, default=1.0,
+        help="zipf exponent for item popularity (lower = flatter; 0.9 in "
+        "the full-scale corpus)",
+    )
+    ap.add_argument("-e", "--epochs", type=int, help="override config epochs")
+    ap.add_argument("--dim", type=int, help="override latent_dim")
+    ap.add_argument("--layers", type=int, help="override n_layers")
+    ap.add_argument("--scheme", choices=sorted(WEIGHT_SCHEMES), help="weight scheme")
+    ap.add_argument("--resume", action="store_true", help="resume from last checkpoint")
+    ap.add_argument(
+        "--mesh", type=int, help="devices to mesh (1=single; others wait for the multi-device slice)"
+    )
+    ap.add_argument(
+        "--partition", choices=["gspmd", "edge"], help="multi-device strategy"
+    )
+    ap.add_argument(
+        "--fast", choices=["off", "f32", "bf16"],
+        help="bipartite-factorized propagation (single device)",
+    )
+    ap.add_argument(
+        "--heavy-users", type=int,
+        help="dense-heavy-user head size K for the fast path (0=off)",
+    )
+    ap.add_argument(
+        "--checkpoint-every", type=int,
+        help="save LAST every N epochs (0 = only at the end)",
+    )
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--distributed", action="store_true", help="multi-host (refused)")
+    ap.add_argument("--coordinator", help="multi-host coordinator host:port (refused)")
+    ap.add_argument("--num-processes", type=int, help="total host processes (refused if > 1)")
+    ap.add_argument("--process-id", type=int, help="this host's process index (refused)")
+    args = ap.parse_args(argv)
+
+    if multi_host_requested(args):
+        raise SystemExit(
+            "multi-host training is not ported yet (ROADMAP.md §1, item 9); "
+            "run one process on one device without the multi-host flags"
+        )
+
+    cfg = FrameworkConfig.load(args.config) if args.config else FrameworkConfig()
+    if args.epochs is not None:
+        cfg.train.epochs = args.epochs
+    if args.dim is not None:
+        cfg.train.latent_dim = args.dim
+    if args.layers is not None:
+        cfg.train.n_layers = args.layers
+    if args.scheme:
+        cfg.weight_scheme = args.scheme
+    if args.resume:
+        cfg.train.resume = True
+    if args.mesh is not None:
+        cfg.mesh_devices = args.mesh
+    if args.partition:
+        cfg.train.partition = args.partition
+    if args.fast:
+        cfg.train.fast_bipartite = args.fast
+    if args.heavy_users is not None:
+        cfg.train.heavy_users = args.heavy_users
+    if args.checkpoint_every is not None:
+        cfg.train.checkpoint_every = args.checkpoint_every
+    cfg.train.mesh_devices = cfg.mesh_devices
+    cfg.train.checkpoint_dir = cfg.checkpoint_dir
+
+    t0 = time.perf_counter()
+    edges = load_edges(args, cfg)
+    print(f"{len(edges)} weighted edges; splitting + preparing ...", flush=True)
+    tr, va, te = split_edges(edges, seed=cfg.train.seed)
+    del edges
+    prepared = prepare_splits(tr, va, te)
+    del tr, va, te
+    etl_s = time.perf_counter() - t0
+    os.makedirs(cfg.data_dir, exist_ok=True)
+    save_prepared(prepared, cfg.data_dir)
+    print(f"prepared artifact -> {cfg.data_dir}", flush=True)
+    # The ETL's seconds (load, split, prepare) go to the training log, in
+    # front of the records that train() appends there.
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    log_path = cfg.train.log_path or os.path.join(cfg.checkpoint_dir, "train_log.jsonl")
+    with open(log_path, "a") as f:
+        f.write(json.dumps({"etl_s": etl_s, "data_dir": cfg.data_dir}) + "\n")
+
+    result = train(prepared, cfg.train, device=args.device)
+    print(
+        f"done: best epoch {result.best_epoch} "
+        f"val R@{cfg.train.k} {result.best_val_recall:.6f} | "
+        f"test P@{cfg.train.k} {result.test_precision:.6f} "
+        f"R@{cfg.train.k} {result.test_recall:.6f}"
+    )
+
+
+if __name__ == "__main__":
+    main()

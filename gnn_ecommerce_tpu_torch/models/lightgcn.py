@@ -1,13 +1,14 @@
 """LightGCN as plain functions over a params dict ``{"embedding": [N, D]}``.
 
 Counterpart of ``gnn_ecommerce_tpu/models/lightgcn.py``: the config, the
-Xavier-uniform init and the layered alpha-weighted embedding, differentiable
-through ``ops/propagate.py``.
+Xavier-uniform init, the layered alpha-weighted embedding (differentiable
+through ``ops/propagate.py``), pair scores, the full forward and link
+prediction.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -57,12 +58,47 @@ def get_embedding(
     params: dict,
     graph: BipartiteGraph,
     cfg: LightGCNConfig,
+    propagate_fn: Callable = propagate_segment,
 ) -> torch.Tensor:
     """Alpha-weighted sum of the L+1 layer embeddings, in the table's dtype."""
     x = params["embedding"]
     alpha = cfg.alphas(x.device).to(x.dtype)
     out = x * alpha[0]
     for layer in range(cfg.num_layers):
-        x = propagate_segment(graph, x)
+        x = propagate_fn(graph, x)
         out = out + x * alpha[layer + 1]
     return out
+
+
+def pair_scores(
+    final_embedding: torch.Tensor, src_idx: torch.Tensor, dst_idx: torch.Tensor
+) -> torch.Tensor:
+    """Dot-product rankings for (src, dst) node pairs:
+    ``(out[src] * out[dst]).sum(-1)``."""
+    return (final_embedding[src_idx] * final_embedding[dst_idx]).sum(-1)
+
+
+def forward(
+    params: dict,
+    graph: BipartiteGraph,
+    edge_label_index: torch.Tensor,
+    cfg: LightGCNConfig,
+    propagate_fn: Callable = propagate_segment,
+) -> torch.Tensor:
+    """Full forward: propagate, then score the labelled pairs
+    ``edge_label_index`` [2, P] (all graph arcs: ``torch.stack([graph.src,
+    graph.dst])``)."""
+    out = get_embedding(params, graph, cfg, propagate_fn)
+    return pair_scores(out, edge_label_index[0], edge_label_index[1])
+
+
+def predict_link(
+    params: dict,
+    graph: BipartiteGraph,
+    edge_label_index: torch.Tensor,
+    cfg: LightGCNConfig,
+    prob: bool = False,
+) -> torch.Tensor:
+    """Link probabilities, or hard 0/1 predictions unless ``prob``."""
+    p = torch.sigmoid(forward(params, graph, edge_label_index, cfg))
+    return p if prob else torch.round(p)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: every module of gnn_ecommerce_tpu_torch,
-and chip_smoke.py, imports with JAX and the JAX package made unimportable,
-and no source names either."""
+and chip_smoke.py, imports with JAX, the JAX package, pandas and PyYAML
+made unimportable, and no source names JAX or the JAX package."""
 import os
 import pathlib
 import re
@@ -29,10 +29,13 @@ def _port_modules() -> list[str]:
 def test_every_module_imports_without_jax():
     modules = _port_modules() + ["chip_smoke"]
     assert "gnn_ecommerce_tpu_torch.ops.spmm_fast" in modules
+    assert "gnn_ecommerce_tpu_torch.cli.train" in modules
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['gnn_ecommerce_tpu'] = None\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['yaml'] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'gnn_ecommerce_tpu.'))\n"
