@@ -32,6 +32,20 @@ Phases, one printed line each (plus detail lines):
   6 serve     the REST server with the batcher answers :predict requests of
               1, 8, 64 and 512 users (300 timed per size, p50/p90/p99), each
               answer checked against a plain top-K
+ 13 quantized (runs after 6) phase 4's RecommenderService switched to
+              quantized serving: its refresh propagates through K1 f32 and
+              quantizes the [1,607,459, 90] cache to int8 rows; the rows and
+              scales equal the host's quantize_rows; the int8 product
+              (torch._int_mm, padded to its shape rules) exact at odd
+              users x items shapes (1 to 5,094 x 5,457 to 54,571);
+              topk_scores_int8 on 4,096 users against
+              its plain version (the exact f32 product of the int8 values):
+              scores bit for bit, ids equal but for ties; the overlap of its
+              top-20 with the f32 top-20; the int8 product and top-20 timed
+              against the f32 ones at 512 and 4,096 users; the REST server
+              over it answers 300 timed requests per size, each held
+              against the plain int8 top-20 (differences only at exact
+              ties), p50/p90/p99 beside phase 6's
   7 grad      on one fixed batch of 1024, the exact fast batched loss's
               gradient and the full fast forward's loss gradient (K1 runs in
               fast_to_users' backward) against the layered loss's gradient,
@@ -78,10 +92,20 @@ Phases, one printed line each (plus detail lines):
               the path's launches are read, K1 bf16 and its cast are held
               against their plain versions at the path's own shapes (the
               best checkpoint's user table over the tail plan that
-              train/driver.py builds from the saved artifact)
+              train/driver.py builds from the saved artifact); then
+              cli.infer -k 20 on the best checkpoint explains every hit user
+              (the metrics CSV's rows are the eval users and its recall is
+              evaluate's on the same embedding; every path starts at its
+              user, ends at its hit item and walks train edges; the int8
+              top-20 keeps at least 0.9 of the f32 top-20); two SVD epochs
+              fed fixed permutations on the card equal the CPU's (rtol
+              1e-5), and cli.svd (2 folds, 5 epochs, P/R@10) on the edges
+              CSV lands within 0.003 of JAX's cli.svd on the same CSV, while
+              fits of 0 and 1 epochs land outside that limit
  11 kernels   one JSON line of the port's kernels, with their launches on
-              the paths of phases 4-6, 7, 8, 9, 10 and 12 (each counted from
-              0 just before the path and read just after)
+              the paths of phases 4-6, 13, 7, 8, 9, 10 and 12 (train, infer
+              and svd apart; each counted from 0 just before the path and
+              read just after)
 The last line is {"ok": true, "device": {...}}. Any failed check raises.
 Without CUDA, or without the repository around this file, it exits non-zero
 and prints no result.
@@ -90,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -103,7 +128,9 @@ import urllib.request
 import numpy as np
 import torch
 
+from gnn_ecommerce_tpu_torch.cli import infer as infer_cli
 from gnn_ecommerce_tpu_torch.cli import preprocess as preprocess_cli
+from gnn_ecommerce_tpu_torch.cli import svd as svd_cli
 from gnn_ecommerce_tpu_torch.cli import train as train_cli
 from gnn_ecommerce_tpu_torch.data.artifacts import load_prepared
 from gnn_ecommerce_tpu_torch.data.events import EVENT_TYPE_WEIGHTS_V1, events_to_edges, read_csv
@@ -111,10 +138,16 @@ from gnn_ecommerce_tpu_torch.data.prepare import CsrList, EvalSplit, PreparedDat
 from gnn_ecommerce_tpu_torch.data.synthetic import synthetic_events
 from gnn_ecommerce_tpu_torch.device import mm_f32, resolve_device
 from gnn_ecommerce_tpu_torch.eval.baselines import popularity_recall_at_k
-from gnn_ecommerce_tpu_torch.eval.evaluate import build_eval_buckets, evaluate_bucketed
+from gnn_ecommerce_tpu_torch.eval.evaluate import (
+    build_eval_batch,
+    build_eval_buckets,
+    evaluate,
+    evaluate_bucketed,
+)
 from gnn_ecommerce_tpu_torch.graph.build import build_graph
 from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, get_embedding, init_params
 from gnn_ecommerce_tpu_torch.models.losses import bpr_loss, reg_loss
+from gnn_ecommerce_tpu_torch.models.svd import SVDConfig, pad_edges, svd_epoch
 from gnn_ecommerce_tpu_torch.ops._kernels import (
     ALL_KERNELS,
     LANE_GATHER,
@@ -156,8 +189,16 @@ from gnn_ecommerce_tpu_torch.probes.kernels import (
     tile_segreduce_abs_sum,
     tile_segreduce_plain,
 )
+from gnn_ecommerce_tpu_torch.ops.topk_score import _mask_scores, topk_scores
 from gnn_ecommerce_tpu_torch.sampling.bpr import make_sampler_data
 from gnn_ecommerce_tpu_torch.serve import BatchingRecommender, RecommenderService, make_server
+from gnn_ecommerce_tpu_torch.serve.quantized import (
+    QuantizedCache,
+    int8_product_int_mm,
+    int8_product_plain,
+    quantize_rows,
+    topk_scores_int8,
+)
 from gnn_ecommerce_tpu_torch.train import LAST_NAME, BEST_NAME, TrainConfig, load_checkpoint, train
 from gnn_ecommerce_tpu_torch.train.step import Adam, make_loss_fn, make_train_fns
 
@@ -205,6 +246,28 @@ CLI_TRAIN_ARGS = [
 CLI_POPULARITY_FACTOR = 3.0
 # What the kernels line keeps of a kernel's check at phase 12's shapes.
 CLI_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
+# Phase 13 (quantized): users of the int8 top-K check and of the product
+# timings (the service's largest batch is 512).
+QUANT_CHECK_USERS = 4096
+# Phase 12's infer step: the int8 top-20 of the trained checkpoint keeps at
+# least this share of the f32 top-20, the bound of
+# tests/test_eval.py::test_int8_quantized_topk_overlap.
+QUANT_OVERLAP_MIN = 0.9
+# Phase 12's svd step: cli.svd on the phase's edges CSV (its sha256 below)
+# with SVD_ARGS; its mean P@10 and R@10 must lie within SVD_TOL of JAX's
+# cli.svd on the same CSV and flags (run on a CPU; the inits and the
+# shuffles come from other generators, the folds are the same). Fits of
+# SVD_BROKEN_EPOCHS epochs must lie outside it (the port's CPU run read
+# P/R 0.00009/0.00005 at 0 epochs, 0.0059/0.0051 at 1), which shows that
+# the limit fails an unfitted model.
+SVD_ARGS = ["--folds", "2", "--epochs", "5", "-k", "10"]
+CLI_EDGES_SHA256 = "23d06557f0385dc784053c96f93b64c71f269fc36be6d6dfc37d9e1df679472a"
+SVD_JAX = {"precision_mean": 0.015851077331507236, "recall_mean": 0.018305578641572534}
+SVD_TOL = 0.003
+SVD_BROKEN_EPOCHS = (0, 1)
+# The on-card SVD epochs against the CPU's: rtol and atol (for parameters
+# near zero), as tests/test_torch_svd.py holds the CPU against optax.
+SVD_EPOCH_RTOL, SVD_EPOCH_ATOL = 1e-5, 1e-7
 # Widths of K1's edge cases: with f32, bf16 and padded bf16 tables they take
 # every (vector width, loads per arc) instance of csrc/segreduce.cu.
 K1_CASE_DIMS = (1, 33, 62, 64, 90, 127, 250, 255, 256)
@@ -1033,16 +1096,166 @@ def plain_topk(emb, ids, prepared, k):
     return scores, vals.cpu(), idx.cpu()
 
 
-def check_answer(items, scores, vals, idx):
+def check_answer(items, scores, vals, idx, rtol: float = 1e-6) -> int:
     """Same top-K sets as the plain answer, except items tied with its k-th
-    score."""
+    score (within ``rtol``; 0 asks for an exact tie). Returns the rows that
+    differ by such ties."""
+    differ = 0
     for row, got in enumerate(items):
         want = set(idx[row].tolist())
         if set(got) == want:
             continue
+        differ += 1
         kth = vals[row, -1].item()
         for item in set(got) ^ want:
-            assert abs(scores[row, item].item() - kth) <= 1e-6 * abs(kth), (row, item)
+            assert abs(scores[row, item].item() - kth) <= rtol * abs(kth), (row, item)
+    return differ
+
+
+def plain_quantized_topk(qc: QuantizedCache, ids, mask, k):
+    """Reference answer of the int8 path: the f32 product of the int8 rows
+    (exact), rescaled and masked as topk_scores_int8 does, torch.topk."""
+    dev = qc.user_q.device
+    ids_t = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=dev)
+    scores = int8_product_plain(qc.user_q[ids_t], qc.item_q) * qc.user_s[ids_t][:, None]
+    scores = _mask_scores(scores * qc.item_s[None, :], torch.as_tensor(mask, device=dev), "neginf")
+    vals, idx = torch.topk(scores, k, dim=1)
+    return scores, vals.cpu(), idx.cpu()
+
+
+def serve_requests(service, prepared: PreparedData, rng: np.random.Generator) -> tuple[dict, list]:
+    """The REST server with the batcher over ``service``: per size (1, 8,
+    64, 512 users, half of them buyers) WARMUP_REQUESTS untimed, then
+    REQUESTS_PER_SIZE timed :predict requests. Returns (ms by size, the
+    (ids, items) of every answer)."""
+    batcher = BatchingRecommender(service)
+    server = make_server(batcher, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/v1/models/lightgcn_recommender:predict"
+    buyers = prepared.sampler.users
+    lat, answers = {}, []
+    try:
+        for size in (1, 8, 64, 512):
+            lat[size] = []
+            for i in range(WARMUP_REQUESTS + REQUESTS_PER_SIZE):
+                ids = np.concatenate([
+                    rng.choice(buyers, (size + 1) // 2),
+                    rng.integers(0, prepared.n_users, size // 2),
+                ])
+                t_req = time.perf_counter()
+                items = post(url, ids.tolist())["items"]
+                if i >= WARMUP_REQUESTS:
+                    lat[size].append((time.perf_counter() - t_req) * 1e3)
+                answers.append((ids, items))
+    finally:
+        server.shutdown()
+        server.server_close()
+    thread.join(timeout=30)
+    return lat, answers
+
+
+def percentiles(lat: dict) -> str:
+    """p50/p90/p99 ms by request size."""
+    return " ".join(
+        f"{size}:" + "/".join(f"{p:.3f}" for p in np.percentile(v, [50, 90, 99]))
+        for size, v in lat.items()
+    )
+
+
+def check_int8_shapes(dev: torch.device, seed: int) -> str:
+    """The int8 product through torch._int_mm against the plain f32 product
+    (exact) at users x items shapes that need each kind of padding: rows
+    below 17 and not a multiple of 8, thousands of users against item
+    counts 8 past a multiple of 16 (the 1/10 corpus's 5,457), and the full
+    corpus's 54,571, at D 90."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(b, n) for b in (1, 17, 2048, 5094) for n in (5457, 5464, 54571)]
+    for b, n in shapes:
+        uq = torch.randint(-127, 128, (b, DIM), generator=g, dtype=torch.int8).to(dev)
+        iq = torch.randint(-127, 128, (n, DIM), generator=g, dtype=torch.int8).to(dev)
+        assert torch.equal(int8_product_int_mm(uq, iq), int8_product_plain(uq, iq)), (b, n)
+    return "exact at users x items " + " ".join(f"{b}x{n}" for b, n in shapes)
+
+
+def quantized_path(prepared: PreparedData, params: dict, svc, seed: int, f32_pct: str) -> str:
+    """Phase 13: phase 4's service switched to quantized serving (its
+    refresh propagates through K1 f32 on the same operators, then
+    quantizes), its quantize_rows held exactly against the host's,
+    topk_scores_int8 on QUANT_CHECK_USERS users against its plain version
+    (scores bit for bit, ids equal but for ties), the overlap of its top-20
+    with the f32 top-20, the int8 product timed against the plain f32
+    products, and the REST server answering from the int8 cache, each answer
+    held against the plain int8 top-20. Returns the detail line."""
+    dev = svc.device
+    n_users = prepared.n_users
+    svc.quantized = True
+    with torch.no_grad():
+        svc.refresh(params)
+        entry = svc._versions[svc._active]
+        svc._warm_version(entry["emb"], entry["qcache"])
+    k1 = SEGREDUCE.launches["float32"]
+    assert k1 >= 1, "the quantized refresh did not propagate through K1 f32"
+    assert svc.stats()["quantized"] is True
+    qc, qemb = entry["qcache"], entry["emb"]
+    with torch.no_grad():
+        q_host, s_host = quantize_rows(qemb.cpu())
+        assert torch.equal(torch.cat([qc.user_q, qc.item_q]).cpu(), q_host), "int8 rows differ from the host's"
+        assert torch.equal(torch.cat([qc.user_s, qc.item_s]).cpu(), s_host), "scales differ from the host's"
+        # The padded item operand: the int8 rows, zeros elsewhere.
+        assert torch.equal(qc.item_mm[: prepared.n_items, :DIM], qc.item_q)
+        assert torch.count_nonzero(qc.item_mm) == torch.count_nonzero(qc.item_q)
+        del q_host, s_host
+        shapes = check_int8_shapes(dev, seed)
+        rng = np.random.default_rng(seed + 3)
+        ids = np.sort(rng.choice(n_users, QUANT_CHECK_USERS, replace=False))
+        ids_t = torch.as_tensor(ids, device=dev)
+        mask = torch.as_tensor(svc._request_mask(ids), device=dev)
+        uq, us = qc.user_q[ids_t], qc.user_s[ids_t]
+        n_items = prepared.n_items
+        assert torch.equal(int8_product_int_mm(uq, qc.item_mm, n_items), int8_product_plain(uq, qc.item_q))
+        vals, idx = topk_scores_int8(uq, us, qc.item_mm, qc.item_s, mask, 20)
+        vals, idx = vals.cpu(), idx.cpu()
+        _, pvals, pidx = plain_quantized_topk(qc, ids, mask, 20)
+        assert torch.equal(vals, pvals), "int8 top-20 scores differ from the plain version's"
+        moved = idx != pidx
+        tied = torch.zeros_like(moved)
+        tied[:, 1:] |= vals[:, 1:] == vals[:, :-1]
+        tied[:, :-1] |= vals[:, :-1] == vals[:, 1:]
+        tied[:, -1] = True  # may tie with the 21st
+        assert not (moved & ~tied).any(), "int8 top-20 ids differ where no scores tie"
+        n_moved = int(moved.sum())
+        _, fidx = topk_scores(qemb[ids_t], qemb[n_users:], mask, 20)
+        overlap = np.mean([
+            len(set(a) & set(b)) / 20 for a, b in zip(idx.tolist(), fidx.cpu().tolist())
+        ])
+        items = qemb[n_users:]
+        times = {}
+        for b in (512, QUANT_CHECK_USERS):
+            u8, uf = uq[:b], qemb[ids_t[:b]]
+            times[f"int_mm_{b}"] = time_ms(lambda: int8_product_int_mm(u8, qc.item_mm, n_items))
+            times[f"plain_int8_{b}"] = time_ms(lambda: int8_product_plain(u8, qc.item_q))
+            times[f"f32_{b}"] = time_ms(lambda: mm_f32(uf, items.T))
+            times[f"topk_int8_{b}"] = time_ms(
+                lambda: topk_scores_int8(u8, us[:b], qc.item_mm, qc.item_s, mask[:b], 20)
+            )
+            times[f"topk_f32_{b}"] = time_ms(lambda: topk_scores(uf, items, mask[:b], 20))
+        del vals, pvals, idx, pidx, fidx, moved, tied, items
+    lat, answers = serve_requests(svc, prepared, np.random.default_rng(seed + 4))
+    differ = 0
+    with torch.no_grad():
+        for ids, items in answers:
+            assert len(items) == len(ids) and all(len(r) == 20 for r in items)
+            differ += check_answer(items, *plain_quantized_topk(qc, ids, svc._request_mask(ids), 20), rtol=0.0)
+    print("  int8 ms: " + " ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    return (
+        f"refresh {svc.last_refresh_s:.2f} s, K1 f32 launches {k1}; int8 rows and scales equal the "
+        f"host's; the int8 product {shapes}; top-20 of {QUANT_CHECK_USERS} users: scores "
+        f"equal the plain version's, "
+        f"ids equal but for {n_moved} tied positions; overlap with f32 top-20 {overlap:.4f}; "
+        f"{len(answers)} answers checked ({differ} differ by exact ties); p50/p90/p99 ms int8 "
+        f"{percentiles(lat)} (f32, phase 6: {f32_pct})"
+    )
 
 
 def post(url: str, body) -> dict:
@@ -1106,6 +1319,17 @@ def fixed_batch(prepared: PreparedData, seed: int, dev) -> tuple:
     return tuple(torch.from_numpy(np.asarray(a, np.int64)).to(dev) for a in (s.users[slot], pos, neg))
 
 
+def in_dir(work: str, fn):
+    """``fn()`` with ``work`` as the working directory (the CLIs' relative
+    default paths land there)."""
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
 def cli_path(work: str) -> str:
     """Phase 12: events CSV -> cli.preprocess -> cli.train in ``work`` (the
     CLI's relative default paths land there). Raises on a failed check;
@@ -1126,13 +1350,8 @@ def cli_path(work: str) -> str:
         assert a.dtype == b.dtype and np.array_equal(a, b), f"edges CSV column {col} differs"
     del events, want, got
 
-    cwd = os.getcwd()
     t0 = time.perf_counter()
-    try:
-        os.chdir(work)
-        train_cli.main(["--edges", edges_csv, *CLI_TRAIN_ARGS])
-    finally:
-        os.chdir(cwd)
+    in_dir(work, lambda: train_cli.main(["--edges", edges_csv, *CLI_TRAIN_ARGS]))
     t_train = time.perf_counter() - t0
 
     data_dir, ckpt = os.path.join(work, "data/prepared"), os.path.join(work, "model-checkpoints")
@@ -1186,6 +1405,138 @@ def check_cli_kernels(work: str, dev: torch.device) -> dict:
         cast = check_cast(E_u)
         k1 = check_kernel("segreduce_bf16", bf16_rows(E_u), plan)
     return {row["name"]: row for row in (cast, k1)}
+
+
+def infer_path(work: str, dev: torch.device) -> str:
+    """Phase 12's inference step: ``cli.infer -d data/prepared -c
+    model-checkpoints -k 20 --out recs`` on the trained checkpoint, every
+    hit user explained. Holds the CSV's rows to the eval users, its recall
+    to evaluate's on the same embedding, every path to its user, its hit
+    item and real edges, and the int8 top-20's overlap with the f32 top-20
+    to QUANT_OVERLAP_MIN. Returns the detail line."""
+    t0 = time.perf_counter()
+    res = in_dir(work, lambda: infer_cli.main([
+        "-d", "data/prepared", "-c", "model-checkpoints", "-k", "20", "--out", "recs",
+        "--device", dev.type,
+    ]))
+    t_infer = time.perf_counter() - t0
+    prepared = load_prepared(os.path.join(work, "data/prepared"))
+    n_users = prepared.n_users
+    split = infer_cli.combined_eval_split(prepared)
+    metrics = read_csv(os.path.join(work, "recs/metrics_K20.csv"))
+    assert np.array_equal(metrics["user_id_idx"], split.user_ids), "metrics rows are not the eval users"
+    batch = build_eval_batch(split, dev)
+    with torch.no_grad():
+        _, recall, per_recall, per_precision, topk = evaluate(res.final_emb, batch, n_users, k=20)
+        qidx = QuantizedCache(res.final_emb, n_users).recommend(split.user_ids, batch.mask, k=20)
+    assert recall == res.recall, (recall, res.recall)
+    assert np.array_equal(metrics["recall"].astype(np.float32), per_recall), "per-user recall differs"
+    overlap = np.mean([len(set(a) & set(b)) / 20 for a, b in zip(qidx.tolist(), topk.tolist())])
+    assert overlap >= QUANT_OVERLAP_MIN, overlap
+
+    hits = read_csv(os.path.join(work, "recs/hit_df.csv"))
+    lengths = hits["path_length"]
+    n_paths = len(lengths)
+    assert n_paths == res.hit_paths == int(round(float(per_precision.astype(np.float64).sum()) * 20))
+    assert set(hits["user_id_idx"].tolist()) == set(split.user_ids[per_recall > 0].tolist())
+    flagged = (lengths < 0) | (lengths > 3)
+    assert np.array_equal(hits["longer_than_3"], np.where(flagged, "True", "False"))
+    n_long = int(flagged.sum())
+    assert n_long == res.longer_than_3
+    found = hits["path"] != ""  # "" where unreachable within the cutoff
+    assert np.array_equal(found, lengths >= 0)
+    paths = [json.loads(path) for path in hits["path"][found]]
+    for user, item, length, path in zip(
+        hits["user_id_idx"][found], hits["item_id_idx"][found], lengths[found], paths
+    ):
+        assert len(path) == length + 1 and path[0] == user and path[-1] == item + n_users, path
+    steps = np.concatenate([np.asarray(p, np.int64).reshape(-1)[:-1] for p in paths] + [[]])
+    nxt = np.concatenate([np.asarray(p, np.int64).reshape(-1)[1:] for p in paths] + [[]])
+    n_nodes = n_users + prepared.n_items
+    keys = np.minimum(steps, nxt).astype(np.int64) * n_nodes + np.maximum(steps, nxt).astype(np.int64)
+    edge_keys = prepared.edge_user.astype(np.int64) * n_nodes + prepared.edge_item_node
+    assert np.isin(keys, edge_keys).all(), "a path step is not a train edge"
+    return (
+        f"cli.infer {t_infer:.2f} s ({' '.join(f'{k} {v:.3f}' for k, v in res.seconds.items())} s): "
+        f"{res.n_users} eval users P@20 {res.precision:.6f} R@20 {res.recall:.6f} (evaluate's); "
+        f"{n_paths} hit paths, every one a walk of real edges from its user to its hit item, "
+        f"{n_long} longer than 3 hops or missing, count by length "
+        f"{dict(zip(*(x.tolist() for x in np.unique(lengths, return_counts=True))))}; int8 top-20 "
+        f"overlap {overlap:.4f}"
+    )
+
+
+def check_svd_epochs(dev: torch.device, seed: int) -> float:
+    """Two SVD epochs (8 factors, batches of 512: the case of
+    tests/test_torch_svd.py) on a planted two-group set, each fed the same
+    fixed permutation, on the card and on the CPU from the same initial
+    parameters: every parameter within SVD_EPOCH_RTOL / SVD_EPOCH_ATOL.
+    (Adam's normalized steps carry summation-order differences forward; at
+    the CLI's 100 factors they reach 10x this tolerance between two CPU
+    implementations, at 8 factors a third of it.) Returns the largest
+    error relative to the tolerance (at most 1)."""
+    rng = np.random.default_rng(seed)
+    n_users, n_items, n_obs = 120, 60, 3000
+    u = rng.integers(0, n_users, n_obs)
+    i = rng.integers(0, n_items, n_obs)
+    r = np.clip(0.2 + 0.8 * ((u < 60) == (i < 30)) + rng.normal(0, 0.05, n_obs), 0, 1.2)
+    cfg = SVDConfig(n_factors=8, batch_size=512)
+    init = {
+        "mu": torch.tensor(float(np.mean(r)), dtype=torch.float32),
+        "b_u": torch.zeros(n_users),
+        "b_i": torch.zeros(n_items),
+        "p": torch.from_numpy(rng.normal(0, cfg.init_std, (n_users, cfg.n_factors)).astype(np.float32)),
+        "q": torch.from_numpy(rng.normal(0, cfg.init_std, (n_items, cfg.n_factors)).astype(np.float32)),
+    }
+    fitted = {}
+    for where in (dev, torch.device("cpu")):
+        params = {k: v.clone().to(where) for k, v in init.items()}
+        data, bsz = pad_edges(u, i, r.astype(np.float32), cfg.batch_size, where)
+        opt = Adam(cfg.lr)
+        state = opt.init(params)
+        perm_rng = np.random.default_rng(seed + 1)
+        for _ in range(2):
+            perm = torch.from_numpy(perm_rng.permutation(len(data[0]))).to(where)
+            svd_epoch(params, opt, state, perm, data, bsz, cfg.reg)
+        fitted[where.type] = {k: v.cpu() for k, v in params.items()}
+    worst = 0.0
+    for name, want in fitted["cpu"].items():
+        got = fitted[dev.type][name]
+        torch.testing.assert_close(got, want, rtol=SVD_EPOCH_RTOL, atol=SVD_EPOCH_ATOL)
+        limit = SVD_EPOCH_ATOL + SVD_EPOCH_RTOL * want.abs()
+        worst = max(worst, ((got - want).abs() / limit).max().item())
+    return worst
+
+
+def svd_path(work: str, dev: torch.device, seed: int) -> str:
+    """Phase 12's SVD step: two epochs on the card held against the CPU's
+    (check_svd_epochs); ``cli.svd --edges edges.csv`` with SVD_ARGS on the
+    phase's edges CSV, its mean P@10 and R@10 within SVD_TOL of JAX's; the
+    same folds fitted for SVD_BROKEN_EPOCHS epochs outside it. Returns the
+    detail line."""
+    epoch_err = check_svd_epochs(dev, seed)
+    edges_csv = os.path.join(work, "edges.csv")
+    with open(edges_csv, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    assert digest == CLI_EDGES_SHA256, f"edges CSV {digest} is not the one JAX's figures are for"
+    t0 = time.perf_counter()
+    res = svd_cli.main(["--edges", edges_csv, *SVD_ARGS, "--device", dev.type])
+    t_svd = time.perf_counter() - t0
+    for key, want in SVD_JAX.items():
+        assert abs(res[key] - want) <= SVD_TOL, (key, res[key], want)
+    broken = []
+    for epochs in SVD_BROKEN_EPOCHS:
+        out = svd_cli.main(["--edges", edges_csv, *SVD_ARGS, "--epochs", str(epochs), "--device", dev.type])
+        off = max(abs(out[key] - want) for key, want in SVD_JAX.items())
+        assert off > SVD_TOL, f"a {epochs}-epoch fit lies within SVD_TOL of JAX's: {out}"
+        broken.append(f"a {epochs}-epoch fit {out['precision_mean']:.6f} / {out['recall_mean']:.6f}")
+    return (
+        f"svd_epoch on the card: 2 epochs within {epoch_err:.3f} of the CPU's tolerance; "
+        f"cli.svd {t_svd:.2f} s: P@10 {res['precision_mean']:.6f} R@10 {res['recall_mean']:.6f} "
+        f"(JAX {SVD_JAX['precision_mean']:.6f} / {SVD_JAX['recall_mean']:.6f}, limit {SVD_TOL}; per fold P "
+        f"{' '.join(f'{p:.6f}' for p in res['precision_per_fold'])}); outside the limit: "
+        f"{'; '.join(broken)}"
+    )
 
 
 def main(argv=None) -> int:
@@ -1313,46 +1664,27 @@ def main(argv=None) -> int:
         del emb16
 
     t0 = time.perf_counter()
-    batcher = BatchingRecommender(svc)
-    server = make_server(batcher, port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/v1/models/lightgcn_recommender:predict"
-    rng = np.random.default_rng(args.seed + 1)
-    buyers = prepared.sampler.users
-    lat, answers = {}, []
-    try:
-        for size in (1, 8, 64, 512):
-            lat[size] = []
-            for i in range(WARMUP_REQUESTS + REQUESTS_PER_SIZE):
-                ids = np.concatenate([
-                    rng.choice(buyers, (size + 1) // 2),
-                    rng.integers(0, prepared.n_users, size // 2),
-                ])
-                t_req = time.perf_counter()
-                items = post(url, ids.tolist())["items"]
-                if i >= WARMUP_REQUESTS:
-                    lat[size].append((time.perf_counter() - t_req) * 1e3)
-                answers.append((ids, items))
-    finally:
-        server.shutdown()
-        server.server_close()
-    thread.join(timeout=30)
+    lat, answers = serve_requests(svc, prepared, np.random.default_rng(args.seed + 1))
     path_launches["serve"] = read_launches()
     with torch.no_grad():
         for ids, items in answers:
             assert len(items) == len(ids) and all(len(r) == 20 for r in items)
             check_answer(items, *plain_topk(emb, ids, prepared, 20))
-    pct = {
-        size: np.percentile(v, [50, 90, 99]) for size, v in lat.items()
-    }
+    f32_pct = percentiles(lat)
     phase(
         6, "serve", t0,
         f"refresh {svc.last_refresh_s:.2f} s; {REQUESTS_PER_SIZE} timed requests per size, "
-        f"{len(answers)} answers checked; p50/p90/p99 ms "
-        + " ".join(f"{s}:{p[0]:.3f}/{p[1]:.3f}/{p[2]:.3f}" for s, p in pct.items()),
+        f"{len(answers)} answers checked; p50/p90/p99 ms {f32_pct}",
     )
-    del emb, batcher
+    del emb, answers
+
+    # The quantized serving path on the same operators: counts from 0.
+    t0 = time.perf_counter()
+    reset_launches()
+    detail = quantized_path(prepared, params, svc, args.seed, f32_pct)
+    path_launches["quantized"] = read_launches()
+    torch.cuda.empty_cache()
+    phase(13, "quantized", t0, detail)
 
     # Gradient path: the exact fast batched loss and the full fast forward's
     # loss against the layered loss, on one fixed batch.
@@ -1530,6 +1862,13 @@ def main(argv=None) -> int:
         detail = cli_path(work)
         path_launches["cli"] = read_launches()
         cli_rows = check_cli_kernels(work, dev)
+        reset_launches()
+        infer_detail = infer_path(work, dev)
+        path_launches["infer"] = read_launches()
+        torch.cuda.empty_cache()
+        reset_launches()
+        svd_detail = svd_path(work, dev, args.seed)
+        path_launches["svd"] = read_launches()
     assert path_launches["cli"]["segreduce_bf16"] >= 1, "cli.train did not launch K1 bf16"
     for row in rows:
         if row["name"] in cli_rows:  # the same kernel held at the cli path's shapes
@@ -1538,7 +1877,8 @@ def main(argv=None) -> int:
     phase(
         12, "cli", t0,
         f"{detail}; at these shapes K1 bf16 max_abs_err {k1_cli['max_abs_err']:.3e} kernel_ms "
-        f"{k1_cli['ms']:.4f} plain_ms {k1_cli['plain_ms']:.4f}, its cast exact",
+        f"{k1_cli['ms']:.4f} plain_ms {k1_cli['plain_ms']:.4f}, its cast exact; {infer_detail}; "
+        f"{svd_detail}",
     )
 
     t0 = time.perf_counter()

@@ -30,7 +30,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument(
         "--quantized", action="store_true",
-        help="serve int8-quantized embeddings (not ported yet: raises)",
+        help="serve int8-quantized embeddings (per-row absmax; int8 scores, f32 rescale)",
     )
     ap.add_argument(
         "--no-batching", action="store_true",

@@ -6,6 +6,10 @@ numpy arrays a checkpoint holds); the port's are the same dict of tensors on
 a device. Its Adam state is optax's ``ScaleByAdamState`` (count, mu, nu);
 the port's is :class:`~.train.step.AdamState` (step, exp_avg, exp_avg_sq).
 Values and dtypes pass unchanged both ways.
+
+The SVD baseline's params (``models/svd.py``) are ``{"mu", "b_u", "b_i",
+"p", "q"}`` in both packages: :func:`svd_params_to_torch` carries JAX's
+(numpy or JAX arrays) to the port's f32 tensors.
 """
 from __future__ import annotations
 
@@ -23,6 +27,19 @@ def params_to_torch(params: dict, device: str | torch.device = "cuda") -> dict:
         name: torch.from_numpy(np.array(value, copy=True)).to(dev)
         for name, value in params.items()
     }
+
+
+SVD_PARAM_NAMES = ("mu", "b_u", "b_i", "p", "q")
+
+
+def svd_params_to_torch(params: dict, device: str | torch.device = "cuda") -> dict:
+    """JAX-side SVD params -> the port's: the five arrays as f32 tensors
+    (``mu`` 0-d). A missing or extra name raises ``KeyError``."""
+    if set(params) != set(SVD_PARAM_NAMES):
+        raise KeyError(f"SVD params need exactly {SVD_PARAM_NAMES}, got {sorted(params)}")
+    return params_to_torch(
+        {name: np.asarray(params[name], dtype=np.float32) for name in SVD_PARAM_NAMES}, device
+    )
 
 
 def params_to_numpy(params: dict) -> dict:

@@ -33,6 +33,15 @@ class BipartiteGraph:
     def num_nodes(self) -> int:
         return self.n_users + self.n_items
 
+    @property
+    def num_arcs(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        """Undirected edge count |E| (half the stored arcs)."""
+        return self.num_arcs // 2
+
 
 def symmetric_normalize(
     src: np.ndarray, dst: np.ndarray, weight: np.ndarray, num_nodes: int

@@ -2,9 +2,10 @@
 
 Compiles ``graph_core.cpp`` with ``g++`` on first use (cached by source hash,
 see ``_sharedlib``) and exposes numpy wrappers. Every entry point but the
-CSV reader keeps a numpy fallback for a host without a compiler (the reader's
-callers fall back to the ``csv`` module); the B_ii build at full scale needs
-the native ``pair_aggregate`` (its fallback loops over users in Python).
+CSV reader and the BFS keeps a numpy fallback for a host without a compiler
+(the reader's callers fall back to the ``csv`` module, the BFS's to
+``explain.paths.bfs_paths``); the B_ii build at full scale needs the native
+``pair_aggregate`` (its fallback loops over users in Python).
 """
 from __future__ import annotations
 
@@ -62,6 +63,10 @@ def _load():
         lib.ell_sort_by_degree.restype = i64
         lib.ell_fill_bin.argtypes = [i64p, i32p, f32p, i64p, i64, i64, i32p, f32p]
         lib.ell_fill_bin.restype = None
+        lib.bfs_batch.argtypes = [
+            i64p, i64p, i64, i64p, i64, i64p, i64p, i64, i64, i64p, i64p,
+        ]
+        lib.bfs_batch.restype = None
         _STATE["lib"] = lib
         return lib
 
@@ -279,3 +284,44 @@ def ell_fill_bin(
     wb = np.empty((nb, width), dtype=np.float32)
     lib.ell_fill_bin(indptr, src, w, rows, nb, width, ib, wb)
     return ib, wb
+
+
+def available() -> bool:
+    """Whether the native library compiles and loads on this host."""
+    return _load() is not None
+
+
+def bfs_batch(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    sources: np.ndarray,
+    target_indptr: np.ndarray,
+    targets: np.ndarray,
+    cutoff: int = 8,
+    n_threads: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Multithreaded per-source BFS over an undirected CSR (native only:
+    raises ``RuntimeError`` without the library; ``explain.paths`` then takes
+    its numpy BFS). Source ``s`` answers the targets
+    ``targets[target_indptr[s]:target_indptr[s + 1]]``.
+
+    Returns (dist [n_targets], paths [n_targets, cutoff+1]); dist -1 means
+    unreachable within ``cutoff`` hops, and a path row holds dist+1 node
+    ids (-1 after them)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native graph_core unavailable")
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    sources = np.ascontiguousarray(sources, dtype=np.int64)
+    target_indptr = np.ascontiguousarray(target_indptr, dtype=np.int64)
+    targets = np.ascontiguousarray(targets, dtype=np.int64)
+    if n_threads is None:
+        n_threads = min(8, os.cpu_count() or 1)
+    dist = np.empty(len(targets), dtype=np.int64)
+    paths = np.full((len(targets), cutoff + 1), -1, dtype=np.int64)
+    lib.bfs_batch(
+        indptr, indices, len(indptr) - 1, sources, len(sources),
+        target_indptr, targets, cutoff, n_threads, dist, paths,
+    )
+    return dist, paths

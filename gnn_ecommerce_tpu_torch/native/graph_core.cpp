@@ -11,6 +11,8 @@
 //   pair_count          capacity for pair_aggregate
 //   ell_sort_by_degree  degree sort of CSR rows for the ELL plan
 //   ell_fill_bin        densify one ELL degree bin
+//   bfs_batch           multithreaded per-source BFS with parent pointers
+//                       (shortest-path explanations)
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 -pthread graph_core.cpp -o libgraph_core.so
 
@@ -203,6 +205,100 @@ void ell_fill_bin(const int64_t* indptr, const int32_t* src, const float* w,
       wbk[j] = w[lo + j];
     }
   }
+}
+
+// Batched BFS over an undirected CSR graph. For each source s (with targets
+// targets[t_indptr[s]..t_indptr[s+1]]), run one frontier BFS up to `cutoff`
+// hops, then emit per target: distance (or -1) and the path node sequence.
+//
+// Outputs, indexed by the target's global position t:
+//   dist_out[t]                      hop count or -1
+//   path_out[t*(cutoff+1) .. ]       node ids, path_len = dist+1 entries
+//
+// A node's parent is the first frontier node (in frontier order, then CSR
+// order) that reaches it. Each source is run by one worker, so the paths do
+// not depend on the number of threads. Workers take sources from an atomic
+// counter; each owns dist/parent arrays of size N, re-initialized per
+// source by an epoch stamp (no O(N) clear between sources).
+void bfs_batch(const int64_t* indptr, const int64_t* indices, int64_t n_nodes,
+               const int64_t* sources, int64_t n_sources,
+               const int64_t* t_indptr, const int64_t* targets,
+               int64_t cutoff, int64_t n_threads, int64_t* dist_out,
+               int64_t* path_out) {
+  std::atomic<int64_t> next{0};
+  if (n_threads <= 0) n_threads = 1;
+
+  auto worker = [&]() {
+    std::vector<int64_t> seen_epoch(n_nodes, -1);
+    std::vector<int64_t> dist(n_nodes), parent(n_nodes);
+    std::vector<int64_t> frontier, next_frontier;
+    int64_t epoch = 0;
+
+    for (;;) {
+      const int64_t s_idx = next.fetch_add(1);
+      if (s_idx >= n_sources) break;
+      const int64_t s = sources[s_idx];
+      const int64_t t_lo = t_indptr[s_idx], t_hi = t_indptr[s_idx + 1];
+      if (t_lo == t_hi) continue;
+
+      int64_t remaining = 0;
+      for (int64_t t = t_lo; t < t_hi; ++t)
+        if (targets[t] != s) ++remaining;
+
+      ++epoch;
+      seen_epoch[s] = epoch;
+      dist[s] = 0;
+      parent[s] = -1;
+      frontier.clear();
+      frontier.push_back(s);
+
+      for (int64_t d = 0; d < cutoff && remaining > 0 && !frontier.empty();
+           ++d) {
+        next_frontier.clear();
+        for (const int64_t v : frontier) {
+          for (int64_t p = indptr[v]; p < indptr[v + 1]; ++p) {
+            const int64_t nb = indices[p];
+            if (seen_epoch[nb] == epoch) continue;
+            seen_epoch[nb] = epoch;
+            dist[nb] = d + 1;
+            parent[nb] = v;
+            next_frontier.push_back(nb);
+          }
+        }
+        frontier.swap(next_frontier);
+        for (int64_t t = t_lo; t < t_hi; ++t) {
+          const int64_t tgt = targets[t];
+          if (tgt != s && seen_epoch[tgt] == epoch && dist[tgt] == d + 1)
+            --remaining;
+        }
+      }
+
+      for (int64_t t = t_lo; t < t_hi; ++t) {
+        const int64_t tgt = targets[t];
+        int64_t* path = path_out + t * (cutoff + 1);
+        if (tgt == s) {
+          dist_out[t] = 0;
+          path[0] = s;
+          continue;
+        }
+        if (seen_epoch[tgt] != epoch) {
+          dist_out[t] = -1;
+          continue;
+        }
+        const int64_t d = dist[tgt];
+        dist_out[t] = d;
+        int64_t v = tgt;
+        for (int64_t k = d; k >= 0; --k) {
+          path[k] = v;
+          v = parent[v];
+        }
+      }
+    }
+  };
+
+  std::vector<std::thread> threads;
+  for (int64_t k = 0; k < n_threads; ++k) threads.emplace_back(worker);
+  for (auto& th : threads) th.join();
 }
 
 // ---------------------------------------------------------------------------

@@ -11,6 +11,10 @@ user→item arc goes through the CUDA segment reduce on the card. The JAX
 service runs the layered ``get_embedding``; the two are equal up to
 summation order.
 
+With ``quantized=True`` each version also carries a
+:class:`~.quantized.QuantizedCache` of its f32 cache, built after each
+propagation, and requests are ranked on the int8 rows (``serve/quantized.py``).
+
 One deliberate difference from the JAX service: each registry entry carries
 a generation stamp, and a refresh writes back only if the entry it started
 from is still there. The JAX ``refresh`` checks only that the version id is
@@ -35,6 +39,7 @@ from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig
 from ..ops.bipartite import build_fast_bipartite, fast_get_embedding
 from ..train.checkpoint import BEST_NAME, find_leaf, load_checkpoint
+from .quantized import QuantizedCache
 
 
 def validate_user_ids(user_ids, n_users: int) -> np.ndarray:
@@ -70,14 +75,12 @@ class RecommenderService:
         quantized: bool = False,
         device: str | torch.device = "cuda",
     ):
-        if quantized:
-            raise NotImplementedError("quantized serving is not ported yet")
         self.device = resolve_device(device)
         self.prepared = prepared
         self.cfg = cfg
         self.k = k
         self.mask_mode = mask_mode
-        self.quantized = False
+        self.quantized = bool(quantized)
         self._lock = threading.Lock()
         self._req_count = 0
         self._user_count = 0
@@ -198,15 +201,17 @@ class RecommenderService:
                 self.checkpoint_meta = meta
         return secs
 
-    def _build_cache(self, params: dict, cfg: LightGCNConfig) -> torch.Tensor:
-        """The fast f32 forward over this graph's FastBipartite."""
+    def _build_cache(self, params: dict, cfg: LightGCNConfig):
+        """The fast f32 forward over this graph's FastBipartite, and its
+        quantized view when the service is quantized: (emb, qcache)."""
         with torch.inference_mode():
             emb = fast_get_embedding(
                 params, self.fast_bipartite, cfg.num_layers, alpha=cfg.alphas()
             )
+            qcache = QuantizedCache(emb, self.prepared.n_users) if self.quantized else None
         if emb.is_cuda:
             torch.cuda.synchronize(emb.device)
-        return emb
+        return emb, qcache
 
     @property
     def final_emb(self) -> torch.Tensor:
@@ -229,7 +234,7 @@ class RecommenderService:
             cfg = ver["cfg"] if ver else self.cfg
             meta = (ver["meta"] if ver else getattr(self, "checkpoint_meta", {})) or {}
             source = ver["source"] if ver else getattr(self, "_checkpoint_source", None)
-        emb = self._build_cache(params, cfg)
+        emb, qcache = self._build_cache(params, cfg)
         with self._lock:
             current = self._versions.get(target)
             if ver is not None and (current is None or current["gen"] != ver["gen"]):
@@ -237,6 +242,7 @@ class RecommenderService:
                 return self.last_refresh_s
             self._versions[target] = {
                 "emb": emb,
+                "qcache": qcache,
                 "meta": meta,
                 "source": source,
                 "cfg": cfg,
@@ -262,8 +268,8 @@ class RecommenderService:
         cfg = self._config(meta, self.prepared, self.cfg)
         params = self._checkpoint_params(leaves, meta, cfg, self.device)
         t0 = time.perf_counter()
-        emb = self._build_cache(params, cfg)
-        self._warm_version(emb)
+        emb, qcache = self._build_cache(params, cfg)
+        self._warm_version(emb, qcache)
         with self._lock:
             self._check_register_locked(version)  # may have raced another
             if version is None:
@@ -274,6 +280,7 @@ class RecommenderService:
                 self._next_version += 1
             self._versions[version] = {
                 "emb": emb,
+                "qcache": qcache,
                 "meta": meta,
                 "source": (checkpoint_dir, checkpoint_name),
                 "cfg": cfg,
@@ -293,14 +300,21 @@ class RecommenderService:
                 "pins a full device cache — unregister an idle one first"
             )
 
-    def _warm_version(self, emb: torch.Tensor) -> None:
+    def _warm_version(self, emb: torch.Tensor, qcache: QuantizedCache | None) -> None:
         """Run every batch bucket against a not-yet-active version's cache
         before it can take traffic."""
         for b in self.BATCH_BUCKETS:
             ids = np.zeros((b,), dtype=np.int64)
-            recommend_users(
-                emb, ids, self._request_mask(ids), self.prepared.n_users,
-                k=self.k, mask_mode=self.mask_mode,
+            self._rank(emb, qcache, ids, self._request_mask(ids), self.k)
+
+    def _rank(self, emb, qcache, ids: np.ndarray, mask: np.ndarray, k: int) -> np.ndarray:
+        """Top-K local item ids from one version's cache: the int8 rows when
+        it has a quantized view, else the f32 rows."""
+        with torch.inference_mode():
+            if qcache is not None:
+                return qcache.recommend(ids, mask, k=k)
+            return recommend_users(
+                emb, ids, mask, self.prepared.n_users, k=k, mask_mode=self.mask_mode
             )
 
     def _activate_locked(self, version: str) -> None:
@@ -365,11 +379,9 @@ class RecommenderService:
         ids = validate_user_ids(user_ids, self.prepared.n_users)
         mask = self._request_mask(ids)
         with self._lock:
-            emb = self._versions[self._active]["emb"]
-        with torch.inference_mode():
-            out = recommend_users(
-                emb, ids, mask, self.prepared.n_users, k=k, mask_mode=self.mask_mode
-            )
+            v = self._versions[self._active]
+            emb, qcache = v["emb"], v["qcache"]
+        out = self._rank(emb, qcache, ids, mask, k)
         with self._lock:
             self._req_count += 1
             self._user_count += len(ids)

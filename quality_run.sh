@@ -3,7 +3,10 @@
 # corpus of scripts/full_corpus_r3.py (seed 42, 768 co-clusters, affinity
 # 0.85, item skew 0.9) at the settings of scripts/train_full_r5b.py (dim 90,
 # 5 layers, bf16 fast path, 16,384-user head, 20 epochs), in a temporary
-# directory; then the saved artifact's hash and the popularity baseline.
+# directory; then the saved artifact's hash and the popularity baseline;
+# then cli.infer on the best checkpoint (P/R@20 over the val and test users,
+# shortest paths of the first 2,000 hit users, as the TPU's INFER_r4.json
+# was made).
 #
 #   bash quality_run.sh [OUT_DIR]      # default OUT_DIR: quality_run_out/
 #   bash quality_run.sh --hash DIR     # hash a prepared-artifact directory
@@ -15,8 +18,8 @@
 #   from full_corpus_r3 import build_prepared
 #   from gnn_ecommerce_tpu.data.artifacts import save_prepared
 #   save_prepared(build_prepared()[0], 'jax_prepared')"
-# OUT_DIR receives train.out (the CLI's output), train_log.jsonl and the
-# artifact's manifest.json.
+# OUT_DIR receives train.out (the CLI's output), train_log.jsonl, the
+# artifact's manifest.json, infer.out and the path table hit_df.csv.
 set -euo pipefail
 REPO=$(cd "$(dirname "$0")" && pwd)
 export PYTHONPATH="$REPO"
@@ -73,3 +76,9 @@ T1=$(date +%s.%N)
 python -c "print('wall_s', $T1 - $T0)"
 cp model-checkpoints/train_log.jsonl data/prepared/manifest.json "$OUT/"
 hash_artifact data/prepared
+T2=$(date +%s.%N)
+python -m gnn_ecommerce_tpu_torch.cli.infer -d data/prepared -c model-checkpoints -k 20 \
+  --out recs --max-path-users 2000 2>&1 | tee "$OUT/infer.out"
+T3=$(date +%s.%N)
+python -c "print('infer_wall_s', $T3 - $T2)"
+cp recs/hit_df.csv "$OUT/"

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: every module of gnn_ecommerce_tpu_torch,
-and chip_smoke.py, imports with JAX, the JAX package, pandas and PyYAML
-made unimportable, and no source names JAX or the JAX package."""
+and chip_smoke.py, imports with JAX, the JAX package, pandas, PyYAML,
+matplotlib and networkx made unimportable (the plots import the last two
+only when they draw), and no source names JAX or the JAX package. Exact
+checks: no tolerance applies."""
 import os
 import pathlib
 import re
@@ -30,12 +32,15 @@ def test_every_module_imports_without_jax():
     modules = _port_modules() + ["chip_smoke"]
     assert "gnn_ecommerce_tpu_torch.ops.spmm_fast" in modules
     assert "gnn_ecommerce_tpu_torch.cli.train" in modules
+    assert "gnn_ecommerce_tpu_torch.explain.plots" in modules
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['gnn_ecommerce_tpu'] = None\n"
         "sys.modules['pandas'] = None\n"
         "sys.modules['yaml'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        "sys.modules['networkx'] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'gnn_ecommerce_tpu.'))\n"

@@ -300,10 +300,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(artifacts, monkeypatch):
         RecommenderService.from_artifacts(data, ckpt, "vA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_serve.main(["-d", data, "-c", ckpt, "--checkpoint-name", "vA"])
-    with pytest.raises(NotImplementedError):
-        RecommenderService.from_artifacts(data, ckpt, "vA", quantized=True, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_serve.main(["-d", data, "-c", ckpt, "--checkpoint-name", "vA", "--quantized"])
+    quantized = RecommenderService.from_artifacts(data, ckpt, "vA", quantized=True, device="cpu")
+    assert quantized.stats()["quantized"] is True
     served = []
     monkeypatch.setattr(cli_serve, "serve_forever", lambda svc, host, port: served.append(svc))
     cli_serve.main(["-d", data, "-c", ckpt, "--checkpoint-name", "vA", "--device", "cpu", "-k", "7"])
+    cli_serve.main([
+        "-d", data, "-c", ckpt, "--checkpoint-name", "vA", "--device", "cpu", "-k", "7",
+        "--quantized",
+    ])
     assert isinstance(served[0], BatchingRecommender)
     assert served[0].recommend([0]).shape == (1, 7)
+    assert served[1].stats()["quantized"] is True
+    assert served[1].recommend([0, 1]).shape == (2, 7)
