@@ -19,6 +19,13 @@ import csv
 
 import numpy as np
 
+# pandas' default ``na_values``: fields read as missing.
+NA_VALUES = (
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+)
+_TRUE, _FALSE = ("True", "TRUE", "true"), ("False", "FALSE", "false")
+
 
 class Frame:
     """Equal-length columns by name, in order."""
@@ -64,3 +71,35 @@ def _cells(col: np.ndarray) -> list:
     if col.dtype != object:
         return col.astype(str).tolist()
     return ["" if cell is None else str(cell) for cell in col]
+
+
+def read_frame(path: str) -> Frame:
+    """Every column of a CSV with a header, typed as pandas' ``read_csv``
+    types it: int64, or float64 where a numeric column has a missing field
+    (pandas' ``na_values``, NaN), bool for True/False columns with none
+    missing, else strings (a numpy ``str`` column, or an object column with
+    ``None`` where a field is missing)."""
+    from .events import read_csv
+
+    return Frame({name: _pandas_column(col) for name, col in read_csv(path).items()})
+
+
+def _pandas_column(col: np.ndarray) -> np.ndarray:
+    if col.dtype.kind != "U":
+        return col
+    na = np.isin(col, NA_VALUES)
+    rest = col[~na]
+    try:
+        values = rest.astype(np.float64)
+    except ValueError:
+        values = None
+    if values is not None:
+        out = np.full(len(col), np.nan)
+        out[~na] = values
+        return out
+    if not na.any():
+        return np.isin(col, _TRUE) if np.isin(rest, _TRUE + _FALSE).all() else col
+    out = np.empty(len(col), dtype=object)
+    out[:] = col.tolist()
+    out[na] = None
+    return out

@@ -33,6 +33,15 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     return dev
 
 
+def divisor(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-d f32 tensor on ``device``, to divide by. On the card
+    a division by a Python scalar multiplies by its reciprocal, which can
+    round one ulp away from the true division that JAX and the CPU do; a
+    tensor divisor divides. It is filled on the device, so making it does
+    not wait for the stream (a copy from the host would)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with an f32 result: exact f32 for f32 operands; for bf16
     operands the products are exact in f32 and summed in f32 (cuBLAS with an

@@ -2,7 +2,8 @@
 
 Counterpart of ``gnn_ecommerce_tpu/eval/metrics.py:recall_precision_at_k``:
 per eval user, overlap = |top-K ∩ truth|; recall = overlap / |truth|;
-precision = overlap / K. The overlap is a membership test on the device.
+precision = overlap / K (true divisions: ``device.divisor``). The overlap is
+a membership test on the device.
 ``mark_frame`` gives the per-user metrics table of the JAX package's
 ``mark_frame`` as a :class:`~..data.frame.Frame`.
 """
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from ..data.frame import Frame
+from ..device import divisor
 
 
 def recall_precision_at_k(
@@ -23,7 +25,7 @@ def recall_precision_at_k(
     per user, so the hit count is the size of the intersection."""
     hits = (topk_idx[:, :, None].long() == truth[:, None, :].long()).any(dim=2).sum(dim=1)
     truth_len = (truth >= 0).sum(dim=1).clamp(min=1)
-    return hits.float() / truth_len.float(), hits.float() / k
+    return hits.float() / truth_len.float(), hits.float() / divisor(k, hits.device)
 
 
 def mark_frame(

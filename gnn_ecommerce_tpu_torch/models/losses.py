@@ -6,14 +6,16 @@ Counterpart of ``gnn_ecommerce_tpu/models/losses.py``:
 - ``bpr_loss_reference``: the literal ``(-mean logsigmoid + λ‖E‖²) / n_pairs``
   form, kept for parity checks;
 - ``reg_loss``: ``decay · 0.5 · (‖E[u]‖² + ‖E[p]‖² + ‖E[n]‖²) / batch`` on the
-  layer-0 embeddings; an id that appears twice in the batch counts twice,
-  as a gather-then-norm does;
+  layer-0 embeddings (a true division, ``device.divisor``); an id that
+  appears twice in the batch counts twice, as a gather-then-norm does;
 - ``link_pred_loss``: binary cross-entropy with logits.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..device import divisor
 
 
 def bpr_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor) -> torch.Tensor:
@@ -31,7 +33,7 @@ def bpr_loss_reference(
     n_pairs = pos_scores.shape[0]
     log_prob = F.logsigmoid(pos_scores - neg_scores).mean()
     reg = lambda_reg * embedding.float().pow(2).sum()
-    return (-log_prob + reg) / n_pairs
+    return (-log_prob + reg) / divisor(n_pairs, log_prob.device)
 
 
 def reg_loss(
@@ -43,7 +45,7 @@ def reg_loss(
 ) -> torch.Tensor:
     """L2 on the gathered ego embeddings of the batch triplets."""
     sq = sum(embedding[ids].float().pow(2).sum() for ids in (users, pos_items, neg_items))
-    return decay * 0.5 * sq / users.shape[0]
+    return decay * 0.5 * sq / divisor(users.shape[0], sq.device)
 
 
 def link_pred_loss(pred_logits: torch.Tensor, edge_label: torch.Tensor) -> torch.Tensor:

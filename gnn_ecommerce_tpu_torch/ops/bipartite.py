@@ -106,32 +106,31 @@ class FastOps:
     msgs_dtype: str = "float32"
 
 
-def split_heavy_users(
-    split: BipartiteSplit,
-    heavy_users: int,
-    heavy_dtype: str,
-    device: str | torch.device = "cuda",
-) -> tuple:
-    """Extract the dense heavy-user head and return the sparse TAIL arcs.
+def heavy_tail(split: BipartiteSplit, heavy_users: int) -> tuple:
+    """Choose the heavy-user head on the host and return the sparse TAIL.
 
-    Returns ``(hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src,
-    iu_w)``: ``hi_ids``/``w_hi`` are None without a head; the arc arrays are
-    the tail (heavy users' arcs removed from both directions). The head is
-    chosen on the host with the JAX package's numpy code, so both packages
-    pick the same users and build the same tail.
+    Returns ``(hi, head_coo, ui_src, ui_dst, ui_w, iu_indptr, iu_src,
+    iu_w)``: ``hi`` the ascending heavy user ids (numpy) and ``head_coo =
+    (keys, w_sum)`` the head's deduplicated COO, ``keys = item * len(hi) +
+    rank`` ascending (both None without a head); the arc arrays are the tail
+    (heavy users' arcs removed from both directions). The head is chosen
+    with the JAX package's numpy code, so both packages pick the same users
+    and build the same tail. The dense head is laid out by the caller: one
+    [n_items, K] matrix (:func:`split_heavy_users`) or per-shard column
+    blocks (``parallel/edge_partition_fast.py``).
     """
-    dev = resolve_device(device)
     ui_src, ui_dst, ui_w = split.ui_src_user, split.ui_dst_item, split.ui_w
     iu_indptr, iu_src, iu_w = split.iu_indptr, split.iu_src_item, split.iu_w
-    n_users, n_items = split.n_users, split.n_items
+    n_users = split.n_users
 
-    hi_ids = w_hi = None
+    hi = head_coo = None
     if heavy_users > 0:
         deg = np.bincount(ui_src, minlength=n_users)
         k = min(int(heavy_users), n_users)
-        hi = np.argpartition(-deg, k - 1)[:k] if k < n_users else np.arange(n_users)
-        hi = np.sort(hi[deg[hi] > 0])
-        if len(hi):
+        top = np.argpartition(-deg, k - 1)[:k] if k < n_users else np.arange(n_users)
+        top = np.sort(top[deg[top] > 0])
+        if len(top):
+            hi = top
             rank = np.full(n_users, -1, np.int64)
             rank[hi] = np.arange(len(hi))
             m = rank[ui_src] >= 0
@@ -142,18 +141,40 @@ def split_heavy_users(
             key_s, w_s = key[order], ui_w[m][order].astype(np.float32)
             uniq, start = np.unique(key_s, return_index=True)
             w_sum = np.add.reduceat(w_s, start) if len(start) else w_s
-            dt = _DTYPES[heavy_dtype]
-            w_hi = torch.zeros(n_items * len(hi), dtype=dt, device=dev)
-            w_hi[torch.from_numpy(uniq).to(dev)] = torch.from_numpy(w_sum).to(dev).to(dt)
-            w_hi = w_hi.view(n_items, len(hi))
-            hi_ids = torch.from_numpy(hi.astype(np.int32)).to(dev)
+            head_coo = (uniq, w_sum)
             keep = ~m
             ui_src, ui_dst, ui_w = ui_src[keep], ui_dst[keep], ui_w[keep]
             deg_iu = np.diff(iu_indptr)
             keep_iu = np.repeat(rank < 0, deg_iu)
             iu_indptr = np.append(0, np.cumsum(np.where(rank < 0, deg_iu, 0)))
             iu_src, iu_w = iu_src[keep_iu], iu_w[keep_iu]
-    return hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src, iu_w
+    return hi, head_coo, ui_src, ui_dst, ui_w, iu_indptr, iu_src, iu_w
+
+
+def split_heavy_users(
+    split: BipartiteSplit,
+    heavy_users: int,
+    heavy_dtype: str,
+    device: str | torch.device = "cuda",
+) -> tuple:
+    """Extract the dense heavy-user head and return the sparse TAIL arcs.
+
+    Returns ``(hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src,
+    iu_w)``: ``hi_ids``/``w_hi`` are None without a head; the arc arrays are
+    the tail of :func:`heavy_tail`. ``w_hi`` [n_items, K] is filled on the
+    device from the head's COO.
+    """
+    dev = resolve_device(device)
+    hi, head_coo, *tail = heavy_tail(split, heavy_users)
+    hi_ids = w_hi = None
+    if hi is not None:
+        uniq, w_sum = head_coo
+        dt = _DTYPES[heavy_dtype]
+        w_hi = torch.zeros(split.n_items * len(hi), dtype=dt, device=dev)
+        w_hi[torch.from_numpy(uniq).to(dev)] = torch.from_numpy(w_sum).to(dev).to(dt)
+        w_hi = w_hi.view(split.n_items, len(hi))
+        hi_ids = torch.from_numpy(hi.astype(np.int32)).to(dev)
+    return (hi_ids, w_hi, *tail)
 
 
 def build_fast_ops(
@@ -372,19 +393,27 @@ def item_chain_core(E_u, E_i, to_items_fn, B, num_layers: int, alpha):
     D] item embedding and the alpha-weighted item source that to_users
     consumes. Two levels are computed per B pass, ``B @ [i^{l-2} |
     i^{l-1}]``, so B streams once per pair of layers. Differentiable in
-    ``E_u`` and ``E_i`` (B carries no gradient)."""
+    ``E_u`` and ``E_i`` (B carries no gradient).
+
+    ``B`` is the dense [n_items, n_items] operator, or a callable with a
+    ``dtype`` that returns the [n_items, n] f32 product ``B @ x`` for an
+    [n_items, n] ``x`` in that dtype (the fast edge partition's row-banded
+    B_ii, ``parallel/edge_partition_fast.py:ItemBand``)."""
+    if B is None:
+        raise ValueError("item_chain_core needs the item-item operator B_ii")
+    product = B if callable(B) else functools.partial(mm_f32, B)
     i_seq = [E_i.float(), to_items_fn(E_u)]
     D = E_i.shape[1]
     l = 2
     while l <= num_layers:
         if l + 1 <= num_layers:
             both = torch.cat([i_seq[l - 2].to(B.dtype), i_seq[l - 1].to(B.dtype)], dim=1)
-            nxt = mm_f32(B, both)
+            nxt = product(both)
             i_seq.append(nxt[:, :D])
             i_seq.append(nxt[:, D:])
             l += 2
         else:
-            i_seq.append(mm_f32(B, i_seq[l - 2].to(B.dtype)))
+            i_seq.append(product(i_seq[l - 2].to(B.dtype)))
             l += 1
     out_i = sum(alpha[l] * i_seq[l] for l in range(num_layers + 1))
     S_i = sum(alpha[l] * i_seq[l - 1] for l in range(1, num_layers + 1))

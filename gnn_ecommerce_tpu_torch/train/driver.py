@@ -15,9 +15,11 @@ Checkpoints are written behind the training by one writer thread with a
 latest-wins mailbox (one slot per checkpoint name): a save copies the
 leaves once into pinned host tensors, waits for that copy (so the next step
 may update the params in place), and returns; a save that is superseded
-before the writer takes it is dropped unwritten. The JAX driver's banded
-snapshots and duty-cycled writer serve a slow remote link and are not
-ported (``TrainConfig.async_save_duty`` is accepted and unused).
+before the writer takes it is dropped unwritten. As in the JAX driver, a
+leaf larger than twice ``SNAPSHOT_BAND_BYTES`` is copied in row bands, and
+the writer keeps to a duty cycle: after a write that took T seconds it
+idles ``T·(1-d)/d`` (``d = TrainConfig.async_save_duty`` clamped to [0.05,
+1]), an idle that a flush or a stop cuts short.
 
 Deliberate difference: the JAX driver logs an epoch's record after its save
 block, so a save that raises loses that epoch from the JSONL
@@ -88,7 +90,9 @@ class TrainConfig:
     # Save LAST every N epochs (always after the final epoch); 0 = only at
     # the end. BEST is tracked in a device copy either way.
     checkpoint_every: int = 1
-    # The JAX writer's duty cycle for a slow link; not ported, unused here.
+    # Share of the time the async writer may be busy: after a write of T
+    # seconds it idles T*(1-d)/d before taking the next snapshot (flush and
+    # stop cut the idle short). 1.0 writes back to back.
     async_save_duty: float = 0.5
 
     def hyperparams(self) -> dict:
@@ -123,15 +127,40 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _snapshot(params: dict, opt_state: AdamState) -> tuple[dict, AdamState]:
+# Row-band size of a snapshot's copies: a leaf larger than twice this is
+# copied band by band. Module-level so tests can shrink it.
+SNAPSHOT_BAND_BYTES = 32 << 20
+
+
+def _snapshot_bands(x: torch.Tensor) -> int:
+    """The number of row-band copies that snapshot ``x`` (1: one copy)."""
+    nbytes = x.numel() * x.element_size()
+    if x.dim() == 0 or nbytes <= 2 * SNAPSHOT_BAND_BYTES:
+        return 1
+    nb = -(-nbytes // SNAPSHOT_BAND_BYTES)
+    rows = -(-x.shape[0] // nb)
+    return -(-x.shape[0] // rows)
+
+
+def _snapshot(params: dict, opt_state: AdamState) -> tuple[tuple[dict, AdamState], int]:
     """One copy of every leaf into host memory (pinned for CUDA leaves),
-    awaited before returning, so the caller may update the originals."""
+    awaited before returning, so the caller may update the originals. A
+    leaf larger than twice ``SNAPSHOT_BAND_BYTES`` is copied in row bands
+    into its one buffer. Returns the snapshot and its number of copies."""
+    copies = [0]
 
     def one(x: torch.Tensor) -> torch.Tensor:
-        if not x.is_cuda:
-            return x.detach().clone()
-        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        return buf.copy_(x.detach(), non_blocking=True)
+        x = x.detach()
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+        nb = _snapshot_bands(x)
+        if nb == 1:
+            buf.copy_(x, non_blocking=x.is_cuda)
+        else:
+            rows = -(-x.shape[0] // nb)
+            for r0 in range(0, x.shape[0], rows):
+                buf[r0 : r0 + rows].copy_(x[r0 : r0 + rows], non_blocking=x.is_cuda)
+        copies[0] += nb
+        return buf
 
     snap = (
         {k: one(v) for k, v in params.items()},
@@ -143,7 +172,7 @@ def _snapshot(params: dict, opt_state: AdamState) -> tuple[dict, AdamState]:
     )
     for v in params.values():
         _sync(v.device)
-    return snap
+    return snap, copies[0]
 
 
 def _tree_bytes(params: dict, opt_state: AdamState) -> int:
@@ -158,17 +187,25 @@ class CheckpointWriter:
     still in the mailbox when another of the same name arrives is replaced
     (counted as coalesced); names saved by one call share one snapshot. An
     error on the writer thread is raised by the next ``save`` or ``flush``.
+
+    ``duty`` (clamped to [0.05, 1]) is the share of the time the writer may
+    be busy: after a write of T seconds it idles ``T·(1-duty)/duty`` (at
+    most 600 s) before it takes the next snapshot; ``flush`` and ``stop``
+    cut the idle short. ``stats`` counts the writer's busy and idle
+    seconds, the bytes it wrote and the snapshot's band copies.
     """
 
-    def __init__(self, directory: str, hyperparams: dict):
+    def __init__(self, directory: str, hyperparams: dict, duty: float = 1.0):
         self.directory, self.hyperparams = directory, hyperparams
+        self.duty = min(max(float(duty), 0.05), 1.0)
         self.stats = {
             "requested": 0, "written": 0, "coalesced": 0,
-            "writer_busy_s": 0.0, "writer_bytes": 0,
+            "writer_busy_s": 0.0, "writer_idle_s": 0.0, "writer_bytes": 0,
+            "snapshot_copies": 0,
         }
         self._cv = threading.Condition()
         self._box: dict = {}  # name -> (snapshot id, (params, opt_state), meta kwargs)
-        self._busy = self._stop = False
+        self._busy = self._stop = self._flushing = False
         self._seq = 0
         self._errors: list = []
         self._thread = threading.Thread(target=self._run, daemon=True, name="ckpt-writer")
@@ -177,7 +214,8 @@ class CheckpointWriter:
     def save(self, params: dict, opt_state: AdamState, targets: list) -> None:
         self.raise_errors()
         self.stats["requested"] += len(targets)
-        snap = _snapshot(params, opt_state)
+        snap, copies = _snapshot(params, opt_state)
+        self.stats["snapshot_copies"] += copies
         with self._cv:
             self._seq += 1
             for name, kw in targets:
@@ -212,16 +250,31 @@ class CheckpointWriter:
             except Exception as e:  # raised on the training thread by raise_errors
                 self._errors.append(e)
             finally:
+                busy_s = time.perf_counter() - t0
                 with self._cv:
-                    self.stats["writer_busy_s"] += time.perf_counter() - t0
+                    self.stats["writer_busy_s"] += busy_s
                     self._busy = False
                     self._cv.notify_all()
+            self._idle(busy_s * (1.0 - self.duty) / self.duty)
+
+    def _idle(self, seconds: float) -> None:
+        """Wait ``seconds`` (at most 600) unless a flush or a stop comes."""
+        t0 = time.monotonic()
+        deadline = t0 + min(seconds, 600.0)
+        with self._cv:
+            while not (self._stop or self._flushing) and time.monotonic() < deadline:
+                self._cv.wait(timeout=deadline - time.monotonic())
+            self.stats["writer_idle_s"] += time.monotonic() - t0
 
     def flush(self) -> None:
-        """Wait until every queued save is written; raise a writer error."""
+        """Wait until every queued save is written (cutting the writer's
+        idle short); raise a writer error."""
         with self._cv:
+            self._flushing = True
+            self._cv.notify_all()
             while self._box or self._busy:
                 self._cv.wait()
+            self._flushing = False
         self.raise_errors()
 
     def stop(self, timeout: float | None = None) -> None:
@@ -387,9 +440,16 @@ def _train_impl(
 
     writer = None
     if config.async_saves:
-        writer = CheckpointWriter(config.checkpoint_dir, config.hyperparams())
+        writer = CheckpointWriter(
+            config.checkpoint_dir, config.hyperparams(), duty=config.async_save_duty
+        )
         _state["writer"] = writer
-        log({"msg": "async saves: host snapshots (pinned for CUDA leaves), one writer thread"})
+        log({
+            "msg": (
+                "async saves: host snapshots (pinned for CUDA leaves, row bands above "
+                f"{2 * SNAPSHOT_BAND_BYTES >> 20} MB), one writer thread at duty {writer.duty}"
+            )
+        })
 
     def do_save(params_t: dict, opt_t: AdamState, targets: list) -> None:
         """Write (params_t, opt_t) to every (name, meta kwargs) of targets."""
@@ -540,8 +600,8 @@ def _train_impl(
         log({
             "msg": (
                 f"async saves: {s['written']} written, {s['coalesced']} coalesced of "
-                f"{s['requested']} requested; writer busy {s['writer_busy_s']:.1f}s for "
-                f"{s['writer_bytes'] / 1e9:.2f} GB; final flush "
+                f"{s['requested']} requested; writer busy {s['writer_busy_s']:.1f}s, idle "
+                f"{s['writer_idle_s']:.1f}s for {s['writer_bytes'] / 1e9:.2f} GB; final flush "
                 f"{time.perf_counter() - t_flush0:.1f}s"
             ),
             "flush_s": time.perf_counter() - t_flush0,

@@ -21,6 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import divisor
 from ..models.lightgcn import LightGCNConfig, get_embedding
 from ..models.losses import bpr_loss, reg_loss
 from ..sampling.bpr import BprSamplerData, sample_batch
@@ -73,8 +74,14 @@ class Adam:
             m, v = state.exp_avg[name], state.exp_avg_sq[name]
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            upd = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
-            params[name].sub_(upd, alpha=self.lr)
+            params[name].sub_(adam_direction(m, v, bc1, bc2, self.eps), alpha=self.lr)
+
+
+def adam_direction(m: torch.Tensor, v: torch.Tensor, bc1: float, bc2: float, eps: float) -> torch.Tensor:
+    """``(m / bc1) / (sqrt(v / bc2) + eps)`` with true divisions, as optax
+    divides: the f32 bias corrections divide as tensors
+    (``device.divisor``)."""
+    return (m / divisor(bc1, m.device)).div_((v / divisor(bc2, v.device)).sqrt_().add_(eps))
 
 
 def make_loss_fn(
@@ -151,7 +158,8 @@ def make_train_fns(
             params, opt_state, m = train_step(params, opt_state, graph, sdata, generator)
             total = m if total is None else {k: total[k] + m[k] for k in m}
         names = list(total)
-        means = (torch.stack([total[k] for k in names]) / num_steps).tolist()
+        stacked = torch.stack([total[k] for k in names])
+        means = (stacked / divisor(num_steps, stacked.device)).tolist()
         return params, opt_state, dict(zip(names, means))
 
     return train_step, run_steps

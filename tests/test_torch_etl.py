@@ -287,3 +287,26 @@ def test_read_csv_wrong_field_count_raises(tmp_path):
     path.write_text("a,b\n1,2\n3\n")
     with pytest.raises(ValueError, match="1 fields, header has 2"):
         events.read_csv(str(path))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"seed": 42},  # the ML-100K shape
+    {"n_users": 100, "n_items": 300, "n_ratings": 2100, "seed": 1},  # the truncation branch
+])
+def test_synthetic_movielens_matches_jax(kwargs):
+    """``tests/test_cli.py``'s cases: every column equal to JAX's frame."""
+    from gnn_ecommerce_tpu.data.movielens import synthetic_movielens as jax_synthetic_movielens
+    from gnn_ecommerce_tpu_torch.data.movielens import synthetic_movielens
+
+    got, ref = synthetic_movielens(**kwargs), jax_synthetic_movielens(**kwargs)
+    assert got.columns == list(ref.columns) == ["user_id", "item_id", "rating"]
+    for name in got.columns:
+        np.testing.assert_array_equal(got[name], ref[name].to_numpy())
+        assert got[name].dtype == ref[name].dtype
+
+
+def test_synthetic_movielens_refuses_an_unreachable_target():
+    from gnn_ecommerce_tpu_torch.data.movielens import synthetic_movielens
+
+    with pytest.raises(ValueError, match="unreachable"):
+        synthetic_movielens(n_users=100, n_items=300, n_ratings=1000, seed=1)

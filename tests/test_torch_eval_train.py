@@ -72,6 +72,28 @@ def final_emb():
     return prep, np.array(jax_get_embedding({"embedding": jnp.asarray(emb)}, graph, cfg))
 
 
+def test_recall_precision_divide_as_jax_and_host():
+    """Per-user recall and precision equal JAX's and the host's f32 true
+    divisions bit for bit (K divides as a tensor, not a Python scalar)."""
+    from gnn_ecommerce_tpu.eval.metrics import recall_precision_at_k as jax_rp
+    from gnn_ecommerce_tpu_torch.eval.metrics import recall_precision_at_k
+
+    rng = np.random.default_rng(11)
+    k = 7
+    idx = rng.integers(0, 30, (64, k))
+    truth = np.stack([rng.choice(30, 5, replace=False) for _ in range(64)])
+    truth[np.arange(5)[None, :] >= rng.integers(0, 6, 64)[:, None]] = -1
+    rec, prec = recall_precision_at_k(torch.from_numpy(idx), torch.from_numpy(truth), k)
+    jrec, jprec = jax_rp(jnp.asarray(idx), jnp.asarray(truth), k)
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(jrec))
+    np.testing.assert_array_equal(prec.numpy(), np.asarray(jprec))
+    hits = (idx[:, :, None] == truth[:, None, :]).any(2).sum(1).astype(np.float32)
+    np.testing.assert_array_equal(prec.numpy(), hits / np.float32(k))
+    np.testing.assert_array_equal(
+        rec.numpy(), hits / np.maximum((truth >= 0).sum(1), 1).astype(np.float32)
+    )
+
+
 @pytest.mark.parametrize("split", ["val", "test"])
 def test_evaluate_bucketed_matches_jax(final_emb, prepared, split):
     jprep, emb = final_emb
@@ -231,6 +253,118 @@ def test_epoch_record_logged_when_save_raises(prepared, tmp_path, monkeypatch):
     records = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")]
     epoch0 = [r for r in records if r.get("epoch") == 0 and "val_recall" in r]
     assert len(epoch0) == 1 and "save_s" not in epoch0[0]
+
+
+def test_async_save_banded_snapshot(prepared, tmp_path, monkeypatch):
+    """``tests/test_train_e2e.py::test_async_save_banded_snapshot``: with a
+    1 KB band every table leaf is copied in bands, and the checkpoint is
+    byte-identical to a synchronous, unbanded save."""
+    monkeypatch.setattr(driver, "SNAPSHOT_BAND_BYTES", 1024)
+    writers = []
+    real_writer = driver.CheckpointWriter
+
+    def recording_writer(*a, **k):
+        writers.append(real_writer(*a, **k))
+        return writers[-1]
+
+    monkeypatch.setattr(driver, "CheckpointWriter", recording_writer)
+    r_async = train(prepared, _small(tmp_path / "a", epochs=1), verbose=False, device="cpu")
+    r_sync = train(prepared, _small(tmp_path / "s", epochs=1, async_saves=False), verbose=False, device="cpu")
+    for name in ("LightGCN_best", "LightGCN_last"):
+        a = (tmp_path / "a" / name / "checkpoint.npz").read_bytes()
+        assert a == (tmp_path / "s" / name / "checkpoint.npz").read_bytes()
+    assert r_async.best_val_recall == r_sync.best_val_recall
+    (w,) = writers
+    leaf_bytes = r_async.params["embedding"].numel() * 4
+    bands = driver._snapshot_bands(r_async.params["embedding"])
+    assert bands == -(-leaf_bytes // 1024)
+    # One snapshot (BEST and LAST of the one epoch share it): three banded
+    # leaves (params and both moments).
+    assert w.stats["snapshot_copies"] == 3 * bands
+
+
+def test_snapshot_bands_follow_the_jax_rule():
+    """Leaves up to twice the band are one copy; larger ones are cut into
+    ceil(bytes / band) bands of equal rows (the last shorter)."""
+    band = driver.SNAPSHOT_BAND_BYTES
+    for rows, cols, want in ((10, 4, 1), (2 * band // 16, 4, 1), (2 * band // 16 + 1, 4, 3)):
+        assert driver._snapshot_bands(torch.empty(rows, cols)) == want
+    assert driver._snapshot_bands(torch.empty(())) == 1
+
+
+def test_async_save_duty_cycle(prepared, tmp_path, monkeypatch):
+    """``tests/test_train_e2e.py::test_async_save_duty_cycle``: at duty 0.05
+    each 0.3 s write earns a 5.7 s idle, yet the final flush cuts it short:
+    the newest LAST lands, the run stays fast, and the flush record carries
+    the writer's busy and idle seconds and bytes."""
+    import time as _time
+
+    real_save = driver.save_checkpoint
+    written = []
+
+    def slow_save(*args, **kwargs):
+        _time.sleep(0.3)
+        written.append((kwargs.get("name"), kwargs.get("epoch")))
+        return real_save(*args, **kwargs)
+
+    monkeypatch.setattr(driver, "save_checkpoint", slow_save)
+    n_epochs = 4
+    cfg = _small(tmp_path, epochs=n_epochs, batches_per_epoch=2, async_save_duty=0.05, checkpoint_every=1)
+    t0 = _time.perf_counter()
+    train(prepared, cfg, verbose=False, device="cpu")
+    wall = _time.perf_counter() - t0
+    assert json.load(open(tmp_path / "LightGCN_last" / "meta.json"))["epoch"] == n_epochs - 1
+    assert max(e for name, e in written if name == "LightGCN_last") == n_epochs - 1
+    records = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")]
+    (stats,) = [r for r in records if "flush_s" in r]
+    assert stats["written"] >= 2
+    assert stats["writer_bytes"] > 0
+    assert stats["writer_busy_s"] > 0
+    assert stats["writer_idle_s"] > 0  # the writer did idle between writes
+    assert any("save_s" in r for r in records if "epoch_s" in r)
+    assert wall < 30.0
+
+
+def test_writer_idles_in_proportion_and_flush_cuts_it(tmp_path, monkeypatch):
+    """After a write of T seconds the writer idles T·(1-d)/d: at d = 0.5 a
+    0.2 s write delays the next write by about 0.2 s; a flush ends the
+    idle at once."""
+    import time as _time
+
+    real_save = driver.save_checkpoint
+    starts = []
+
+    def timed_save(*a, **k):
+        starts.append(_time.monotonic())
+        _time.sleep(0.2)
+        return real_save(*a, **k)
+
+    monkeypatch.setattr(driver, "save_checkpoint", timed_save)
+    writer = driver.CheckpointWriter(str(tmp_path), {}, duty=0.5)
+    try:
+        p, s = _tiny_state()
+        writer.save(p, s, [("A", dict(epoch=0, precision=0, recall=0))])
+        while not starts:
+            _time.sleep(0.01)
+        writer.save(p, s, [("B", dict(epoch=1, precision=0, recall=0))])
+        writer.flush()
+        gap_flushed = starts[1] - starts[0]
+        writer.save(p, s, [("C", dict(epoch=2, precision=0, recall=0))])
+        while len(starts) < 3:
+            _time.sleep(0.01)
+        writer.save(p, s, [("D", dict(epoch=3, precision=0, recall=0))])
+        while len(starts) < 4:
+            _time.sleep(0.01)
+        gap_idle = starts[3] - starts[2]
+        writer.flush()
+    finally:
+        writer.stop(timeout=30)
+    assert gap_flushed < 0.35  # 0.2 s write, no idle: the flush cut it
+    assert gap_idle >= 0.38  # 0.2 s write + about 0.2 s idle
+    assert writer.stats["written"] == 4
+    low = driver.CheckpointWriter(str(tmp_path), {}, duty=0.0)
+    low.stop(timeout=30)
+    assert low.duty == 0.05
 
 
 def _tiny_state():

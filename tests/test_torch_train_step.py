@@ -300,6 +300,20 @@ def test_gradients_match_jax_grad(case, monkeypatch, path, mode, heavy):
         np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max())
 
 
+def _assert_direction_divides_as_host(adam, state):
+    """The step's direction is the host's f32 true divisions, bit for bit
+    (the square root is torch's, which is not numpy's in the last bit)."""
+    m = state.exp_avg["embedding"]
+    v = state.exp_avg_sq["embedding"]
+    bc1 = tstep._bias_correction(adam.b1, state.step)
+    bc2 = tstep._bias_correction(adam.b2, state.step)
+    got = tstep.adam_direction(m, v, bc1, bc2, adam.eps).numpy()
+    m, v = m.numpy(), v.numpy()
+    root = torch.from_numpy(v / np.float32(bc2)).sqrt().numpy()
+    ref = (m / np.float32(bc1)) / (root + np.float32(adam.eps))
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_adam_matches_optax_on_the_same_gradients():
     emb = normal(7, (40, 6))
     grads = [normal(8 + s, (40, 6)) * 10.0 ** (s - 2) for s in range(3)]
@@ -314,6 +328,7 @@ def test_adam_matches_optax_on_the_same_gradients():
         upd, jstate = opt.update({"embedding": jnp.asarray(g)}, jstate, jp)
         jp = optax.apply_updates(jp, upd)
         adam.update({"embedding": _t(g)}, tstate, tp)
+        _assert_direction_divides_as_host(adam, tstate)
         # The same f32 update in another grouping of the bias corrections.
         np.testing.assert_allclose(tp["embedding"].numpy(), np.asarray(jp["embedding"]), rtol=1e-6, atol=1e-7)
     assert tstate.step == int(jstate[0].count) == 3
