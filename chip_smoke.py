@@ -108,7 +108,12 @@ Phases, one printed line each (plus detail lines):
               a falling finite loss, no dropped arcs and a best val R@20 at
               least 3x the popularity baseline's on the same split are
               checked; ETL (from the training log), B_ii, epoch and eval
-              seconds and the val R@20 curve on the detail line; cli.eda on
+              seconds and the val R@20 curve on the detail line; two
+              cli.train ranks (torch's four variables, --mesh 2 --partition
+              edge --fast bf16 --backend gloo, both on cuda:0) train the
+              same edges CSV for 2 epochs, rank 0 alone writing, their best
+              val R@20 at least 3x popularity's and within 0.01 of the
+              one-device run's, then --resume trains a third; cli.eda on
               the event CSV (its stats against the CSV's own counts, its
               projection equal to the CSV, every report section, its
               seconds); then, after
@@ -125,11 +130,31 @@ Phases, one printed line each (plus detail lines):
               1e-5), and cli.svd (2 folds, 5 epochs, P/R@10) on the edges
               CSV lands within 0.003 of JAX's cli.svd on the same CSV, while
               fits of 0 and 1 epochs land outside that limit
+ 15 mesh_train (runs after 14) the multi-device training steps at the
+              main configuration's width on phase 4/5's operators, three
+              fixed batches of 1024 from phase 4's params, each step held
+              against the one-device main-path step (make_train_fns over
+              fast_batch_embeddings) from the same params: its loss
+              (rtol 1e-5), the table (2e-3 relative Frobenius) and Adam's
+              first moment (the gradients: f32 1e-5, bf16 2e-3); in a
+              world of 1 over NCCL in
+              this process the fast edge partition's bf16 step (and one
+              f32 step), then in a gloo world of 2 spawned ranks sharing
+              the card the fast edge partition's and the GSPMD fast bf16
+              steps, the replicated leaves bit-equal on every rank after
+              every step; each step's ms, labelled as ranks sharing one
+              card; then, against their plain versions and outside the
+              counts: K1 f32 and bf16 at the world of 1's plans (both
+              directions: its users-side plan is the whole graph's, which
+              the to_items backward runs), and, one rank at a time, K1
+              bf16 at each gloo rank's GSPMD shapes (both directions) and
+              its cast at the rank's edge-partition user rows
  11 kernels   one JSON line of the port's kernels, with their launches on
-              the paths of phases 4-6, 13, 14 (every rank's), 7, 8, 9, 10
-              and 12 (train, infer and svd apart; each counted from 0 just
-              before the path and read just after); K1's rows also carry
-              each mesh rank's shapes and times
+              the paths of phases 4-6, 13, 14 and 15 (every rank's), 7, 8,
+              9, 10 and 12 (train, infer and svd apart; each counted from
+              0 just before the path and read just after); K1's rows (and
+              its cast's) also carry each mesh rank's shapes and times
+              (mesh, mesh_train; K1's mesh_train_world1: the world of 1)
 The last line is {"ok": true, "device": {...}}. Any failed check raises.
 Without CUDA, or without the repository around this file, it exits non-zero
 and prints no result.
@@ -214,16 +239,22 @@ from gnn_ecommerce_tpu_torch.ops.spmm_sharded import (
     build_sharded_fast_ops,
     sharded_to_items,
     sharded_to_users,
+    user_rows_per_shard,
 )
 from gnn_ecommerce_tpu_torch.parallel import (
     build_fast_edge_partition,
     make_fast_edge_fns,
     make_mesh,
     make_sharded_eval_fn,
+    make_sharded_fast_train_step,
+    merge_ep_view,
+    shard_fast_bipartite,
+    shard_params,
     sharded_evaluate,
     split_ep_tree,
 )
-from gnn_ecommerce_tpu_torch.parallel.distributed import barrier, init_distributed
+from gnn_ecommerce_tpu_torch.parallel.distributed import all_gather_rows, barrier, init_distributed
+from gnn_ecommerce_tpu_torch.parallel.sharded_train import unshard_params
 from gnn_ecommerce_tpu_torch.probes import (
     microbench_gather,
     microbench_gather2,
@@ -336,6 +367,18 @@ K1_CASE_DIMS = (1, 33, 62, 64, 90, 127, 250, 255, 256)
 MESH_WORLD, MESH_TIMEOUT_S = 2, 240
 BF16_FORWARD_REL = 5e-2
 MESH_BF16_USERS_REL = 1e-2
+# Phase 15 (mesh train): MESH_TRAIN_STEPS fixed batches of BATCH, each
+# step's loss within MESH_LOSS_RTOL of the one-device main-path step's from
+# the same params, the table within MESH_TABLE_REL relative Frobenius and
+# Adam's first moment (the gradients' running mean) within MESH_GRAD_REL
+# (bf16: on the mesh K1 reduces the users-side plans, the backward of
+# to_items, with each arc weight rounded to bf16, where the one-device
+# backward's ELL keeps it f32). Phase 12's mesh cli.train keeps its best
+# val R@20 within MESH_CLI_RECALL_TOL of the one-device run's.
+MESH_TRAIN_STEPS = 3
+MESH_LOSS_RTOL, MESH_TABLE_REL = 1e-5, 2e-3
+MESH_GRAD_REL = {"float32": 1e-5, "bfloat16": 2e-3}
+MESH_CLI_RECALL_TOL = 0.01
 # Phase 12's EDA step: the report's sections.
 EDA_SECTIONS = ("overview", "headline", "variables", "missing", "correlations", "sample")
 
@@ -1825,16 +1868,18 @@ def mesh_rank(rank: int, world: int, store: str, payload: dict, queue) -> None:
         raise
 
 
-def mesh_world2(payload: dict) -> list:
-    """Phase 14's gloo world of MESH_WORLD spawned ranks sharing cuda:0 (the
-    payload's CUDA tensors reach them by IPC, B_ii included); returns each
-    rank's results. A rank that fails or outlives MESH_TIMEOUT_S fails the
-    phase; every rank is stopped before this returns."""
+def mesh_world2(payload: dict, target=None, label: str = "phase 14") -> list:
+    """A gloo world of MESH_WORLD spawned ranks sharing cuda:0, each running
+    ``target`` (default: phase 14's ``mesh_rank``); the payload's CUDA
+    tensors reach them by IPC, B_ii included. Returns each rank's results.
+    A rank that fails or outlives MESH_TIMEOUT_S fails the phase; every rank
+    is stopped before this returns."""
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         procs = [
-            ctx.Process(target=mesh_rank, args=(r, MESH_WORLD, os.path.join(tmp, "store"), payload, queue))
+            ctx.Process(target=target or mesh_rank,
+                        args=(r, MESH_WORLD, os.path.join(tmp, "store"), payload, queue))
             for r in range(MESH_WORLD)
         ]
         for proc in procs:
@@ -1847,7 +1892,7 @@ def mesh_world2(payload: dict) -> list:
                     results.append(queue.get(timeout=max(1.0, deadline - time.monotonic())))
                 except Exception as e:  # queue.Empty: a rank died or hung
                     raise RuntimeError(
-                        f"phase 14: {len(results)} of {MESH_WORLD} ranks reported within "
+                        f"{label}: {len(results)} of {MESH_WORLD} ranks reported within "
                         f"{MESH_TIMEOUT_S} s; exit codes {[proc.exitcode for proc in procs]}"
                     ) from e
             for proc in procs:
@@ -1859,7 +1904,7 @@ def mesh_world2(payload: dict) -> list:
                     proc.join(10)
     errors = [r["error"] for r in results if "error" in r]
     if errors:
-        raise RuntimeError("phase 14 rank failed:\n" + "\n".join(errors))
+        raise RuntimeError(f"{label} rank failed:\n" + "\n".join(errors))
     assert all(proc.exitcode == 0 for proc in procs), [proc.exitcode for proc in procs]
     return sorted(results, key=lambda r: r["rank"])
 
@@ -1917,6 +1962,303 @@ def mesh_path(split, cfg, params: dict, fb, fb16, emb: torch.Tensor, emb16: torc
 
 def within_rel(got: float, want: float, rel: float = 1e-6) -> bool:
     return abs(got - want) <= rel * abs(want)
+
+
+def step_digest(tensors) -> torch.Tensor:
+    """Two int64 checksums of each f32 tensor's bits (their sum, and a
+    position-weighted sum): equal digests on two ranks mean equal bits."""
+    parts = []
+    for t in tensors:
+        v = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+        w = torch.arange(v.numel(), dtype=torch.int64, device=v.device) % 1_000_003 + 1
+        parts += [v.sum(), (v * w).sum()]
+    return torch.stack(parts)
+
+
+def assert_bit_equal(tensors, mesh, what: str) -> None:
+    """Every rank of ``mesh`` holds the same bits in ``tensors``."""
+    every = all_gather_rows(step_digest(tensors)[None], mesh)
+    assert bool((every == every[0]).all()), f"{what}: the ranks' replicated leaves differ"
+
+
+def one_device_steps(fb, params: dict, batches: list) -> list:
+    """The one-device main-path step (``make_train_fns`` over
+    ``fast_batch_embeddings``, as ``train()`` runs it) on each fixed batch
+    from ``params``: per step (loss, table, Adam's first moment)."""
+    adam = Adam(LR)
+    step, _ = make_train_fns(
+        LightGCNConfig(fb.n_users + fb.n_items, DIM, LAYERS), adam, BATCH, DECAY,
+        batch_embed_fn=lambda p, fb_, u, po, ne: fast_batch_embeddings(
+            p, fb_, LAYERS, u, po, ne, edge_cap=EDGE_CAP
+        ),
+    )
+    p = {"embedding": params["embedding"].clone()}
+    state = adam.init(p)
+    refs = []
+    for users, pos, neg in batches:
+        _, _, m = step.on_batch(p, state, fb, users, pos, neg)
+        assert int(m["dropped_arcs"]) == 0
+        refs.append((float(m["loss"]), p["embedding"].clone(), state.exp_avg["embedding"].clone()))
+    return refs
+
+
+def compare_step(m: dict, table: torch.Tensor, mu: torch.Tensor, ref: tuple, mode: str) -> dict:
+    """A mesh step against the one-device step from the same params: the
+    loss within MESH_LOSS_RTOL, the table within MESH_TABLE_REL relative
+    Frobenius, Adam's first moment within MESH_GRAD_REL; no dropped arcs."""
+    loss, ref_table, ref_mu = ref
+    out = {"loss": float(m["loss"]), "dropped": float(m["dropped_arcs"])}
+    out["loss_rel"] = abs(out["loss"] / loss - 1.0)
+    out["table_rel"] = ((table - ref_table).norm() / ref_table.norm()).item()
+    out["grad_rel"] = ((mu - ref_mu).norm() / ref_mu.norm()).item()
+    assert out["dropped"] == 0.0, out
+    assert out["loss_rel"] <= MESH_LOSS_RTOL and out["table_rel"] <= MESH_TABLE_REL, out
+    assert out["grad_rel"] <= MESH_GRAD_REL[mode], out
+    return out
+
+
+def run_mesh_steps(step, params: dict, state, graph, batches, refs, mode: str, view, dev,
+                   replicated=None) -> list:
+    """``step.on_batch`` on each fixed batch, each held against the
+    one-device step (``refs``; ``view`` gives the unified table and Adam
+    state) and, with ``replicated(params, state) -> (tensors, mesh)``, the
+    replicated leaves against every rank's; per step its stats and ms."""
+    out = []
+    for batch, ref in zip(batches, refs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, _, m = step.on_batch(params, state, graph, *batch)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            row = compare_step(m, view(params)["embedding"], view(state).exp_avg["embedding"], ref, mode)
+            if replicated is not None:
+                assert_bit_equal(*replicated(params, state), f"{mode} step")
+        out.append({**row, "ms": ms})
+    return out
+
+
+def edge_train_steps(split, cfg, mesh, item_op, mode: str, heavy: int, table, batches, refs,
+                     dev) -> list:
+    """The fast edge partition's train step on each fixed batch from
+    ``table`` (``run_mesh_steps``; ``emb_items`` and its moments bit-equal
+    on every rank); also returns the rank's partition."""
+    fep = build_fast_edge_partition(split, mesh, item_op, mode, heavy, mode)
+    _, step = make_fast_edge_fns(cfg, Adam(LR), mesh, fep, BATCH, DECAY, EDGE_CAP)
+    params = split_ep_tree({"embedding": table}, fep)
+    rows = run_mesh_steps(
+        step, params, Adam(LR).init(params), fep, batches, refs, mode,
+        lambda tree: merge_ep_view(tree, fep), dev,
+        lambda p, o: ([p["emb_items"], o.exp_avg["emb_items"], o.exp_avg_sq["emb_items"]], mesh),
+    )
+    return rows, fep
+
+
+def gspmd_train_steps(fb16, cfg, mesh, table, batches, refs, dev) -> tuple[list, object]:
+    """The GSPMD fast bf16 step on each fixed batch (``run_mesh_steps``);
+    also returns the rank's sharded operators."""
+    sfb = shard_fast_bipartite(fb16, mesh, "bfloat16", HEAVY_USERS, "bfloat16")
+    step = make_sharded_fast_train_step(cfg, Adam(LR), mesh, BATCH, DECAY, EDGE_CAP)
+    params = shard_params({"embedding": table}, mesh)
+    rows = run_mesh_steps(
+        step, params, Adam(LR).init(params), sfb, batches, refs, "bfloat16",
+        lambda tree: unshard_params(tree, mesh, cfg.num_nodes), dev,
+    )
+    return rows, sfb
+
+
+def train_world1(split, cfg, item_op32, item_op16, table, batches, refs32, refs16, dev) -> dict:
+    """Phase 15 in a world of 1 over NCCL, in this process: the fast edge
+    partition's bf16 step on every fixed batch and its f32 step on the
+    first (counted), then K1 in f32 and bf16 at this world's plans, both
+    directions (not counted): the forward's to_items, and the users-side
+    plan on the whole graph that the to_items backward runs."""
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl", device=dev)
+    try:
+        mesh = make_mesh(1, axis_sizes=(1,), axis_names=("model",), device=dev)
+        reset_launches()
+        out = {}
+        out["bf16"], fep16 = edge_train_steps(split, cfg, mesh, item_op16, "bfloat16", HEAVY_USERS,
+                                              table, batches, refs16, dev)
+        out["f32"], fep32 = edge_train_steps(split, cfg, mesh, item_op32, "float32", 0, table,
+                                             batches[:1], refs32, dev)
+        out["launches"] = read_launches()
+    finally:
+        torch.distributed.destroy_process_group()
+    E_u, E_i = table[: split.n_users], table[split.n_users :]
+    with torch.no_grad():
+        out["k1"] = {
+            "f32_to_items": check_rank_k1("world 1 K1 f32 to_items", E_u, fep32.items_stack.plan),
+            "f32_to_users": check_rank_k1("world 1 K1 f32 to_users", E_i, fep32.users_stack.plan),
+            "bf16_to_items": check_rank_k1("world 1 K1 bf16 to_items", bf16_rows(E_u),
+                                           fep16.items_stack.plan),
+            "bf16_to_users": check_rank_k1("world 1 K1 bf16 to_users", bf16_rows(E_i),
+                                           fep16.users_stack.plan),
+        }
+    return out
+
+
+def train_rank(rank: int, world: int, store: str, payload: dict, queue) -> None:
+    """One rank of phase 15's gloo world on cuda:0: the fast edge
+    partition's and the GSPMD fast bf16 steps (counted), then, in turns
+    with the other ranks (not counted), K1 at this rank's GSPMD shapes and
+    its cast at the rank's edge-partition user rows. Puts its results, or its traceback, on ``queue``."""
+    try:
+        p = payload
+        dev = resolve_device(p["device"])
+        torch.cuda.set_device(dev)
+        init_distributed(f"file://{store}", world, rank, backend="gloo", device=dev)
+        split, cfg = p["split"], LightGCNConfig(p["num_nodes"], DIM, LAYERS)
+        res = {"rank": rank}
+        reset_launches()
+        t0 = time.perf_counter()
+        mesh = make_mesh(world, axis_sizes=(world,), axis_names=("model",), device=dev)
+        res["edge"], _ = edge_train_steps(split, cfg, mesh, p["fb16"].item_op, "bfloat16",
+                                          HEAVY_USERS, p["table"], p["batches"], p["refs16"], dev)
+        t1 = time.perf_counter()
+        mesh2d = make_mesh(world, axis_sizes=(1, world), device=dev)
+        res["gspmd"], sfb = gspmd_train_steps(p["fb16"], cfg, mesh2d, p["table"], p["batches"],
+                                              p["refs16"], dev)
+        torch.cuda.synchronize(dev)
+        res["edge_s"], res["gspmd_s"] = t1 - t0, time.perf_counter() - t1
+        res["launches"] = read_launches()
+        # K1 bf16 and its cast at this rank's GSPMD shapes (the gloo world
+        # runs bf16 only), one rank at a time.
+        sfo = sfb.fops
+        E_u, E_i = p["table"][: split.n_users], p["table"][split.n_users :]
+        for turn in range(world):
+            barrier()
+            if turn == rank:
+                with torch.no_grad():
+                    res["k1"] = {
+                        "bf16_to_items": check_rank_k1(f"rank {rank} GSPMD K1 bf16 to_items",
+                                                       bf16_rows(E_u), sfo.items_stack.plan),
+                        "bf16_to_users": check_rank_k1(f"rank {rank} GSPMD K1 bf16 to_users",
+                                                       bf16_rows(E_i), sfo.users_stack.plan),
+                    }
+                    R = user_rows_per_shard(split.n_users, world, 512)
+                    res["cast"] = check_cast(E_u[rank * R : (rank + 1) * R])  # an edge rank's rows
+        barrier()
+        torch.distributed.destroy_process_group()
+        queue.put(res)
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def steps_line(rows: list) -> str:
+    return ", ".join(
+        f"loss {r['loss']:.6f} (rel {r['loss_rel']:.1e}) table_rel {r['table_rel']:.2e} grad_rel "
+        f"{r['grad_rel']:.2e} {r['ms']:.1f} ms"
+        for r in rows
+    )
+
+
+def mesh_train_path(split, cfg, params: dict, fb, fb16, prepared: PreparedData, seed: int,
+                    dev) -> tuple[str, dict, list]:
+    """Phase 15: the multi-device train steps at the main configuration's
+    width on MESH_TRAIN_STEPS fixed batches, against the one-device
+    main-path step from the same params: in a world of 1 over NCCL (edge
+    bf16, and one edge f32 step), then in a gloo world of MESH_WORLD ranks
+    sharing this card (edge bf16 and GSPMD bf16). Returns (detail, the
+    path's launches over every process, each gloo rank's K1 rows, the
+    world of 1's K1 rows)."""
+    batches = [fixed_batch(prepared, seed + 10 + b, dev) for b in range(MESH_TRAIN_STEPS)]
+    refs16 = one_device_steps(fb16, params, batches)
+    refs32 = one_device_steps(fb, params, batches[:1])
+    w1 = train_world1(split, cfg, fb.item_op, fb16.item_op, params["embedding"], batches,
+                      refs32, refs16, dev)
+    counts = w1["launches"]
+    assert counts["segreduce_f32"] >= 1 and counts["segreduce_bf16"] >= 1, counts
+    payload = {
+        "device": dev, "split": split, "num_nodes": cfg.num_nodes, "table": params["embedding"],
+        "fb16": fb16, "batches": batches, "refs16": refs16,
+    }
+    ranks = mesh_world2(payload, train_rank, "phase 15")
+    del payload, refs16, refs32
+    for r in ranks:
+        for name, n in r["launches"].items():
+            counts[name] += n
+        assert r["launches"]["segreduce_bf16"] >= 1 and r["launches"]["segreduce_cast_bf16"] >= 1, r["launches"]
+    detail = (
+        f"NCCL world 1: edge bf16 {steps_line(w1['bf16'])}; edge f32 {steps_line(w1['f32'])}; "
+        f"gloo world {MESH_WORLD}, ranks sharing one card (times are not a scaling figure): "
+        + "; ".join(
+            f"rank {r['rank']}: edge bf16 {steps_line(r['edge'])} ({r['edge_s']:.2f} s with the "
+            f"build); GSPMD bf16 {steps_line(r['gspmd'])} ({r['gspmd_s']:.2f} s with the build)"
+            for r in ranks
+        )
+    )
+    return detail, counts, ranks, w1["k1"]
+
+
+def mesh_cli_path(work: str) -> str:
+    """Phase 12's mesh step: two cli.train ranks (gloo, sharing cuda:0,
+    torch's four variables) on the phase's edges CSV, --mesh 2 --partition
+    edge --fast bf16 for 2 epochs with rank 0's checkpoints, then --resume
+    for a third. Best val R@20 of the first launch at least
+    CLI_POPULARITY_FACTOR x popularity and within MESH_CLI_RECALL_TOL of the
+    one-device cli.train's on the same corpus and seed."""
+    with open(os.path.join(work, "model-checkpoints", "train_log.jsonl")) as f:
+        one_device_best = max(r["val_recall"] for r in map(json.loads, f) if "epoch" in r)
+    mesh_dir = os.path.join(work, "mesh")
+    os.makedirs(mesh_dir)
+    edges_csv = os.path.join(work, "edges.csv")
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [
+        "--edges", edges_csv, *CLI_TRAIN_ARGS[2:], "--mesh", str(MESH_WORLD), "--partition",
+        "edge", "--device", "cuda:0", "--backend", "gloo",
+    ]
+
+    def launch(extra: list) -> float:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = []
+        for rank in range(MESH_WORLD):
+            env = {**os.environ, "PYTHONPATH": root, "MASTER_ADDR": "localhost",
+                   "MASTER_PORT": str(port), "WORLD_SIZE": str(MESH_WORLD), "RANK": str(rank)}
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "gnn_ecommerce_tpu_torch.cli.train", *args, *extra],
+                cwd=mesh_dir, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=MESH_TIMEOUT_S)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(10)
+        for rank, (proc, out) in enumerate(zip(procs, outs)):
+            assert proc.returncode == 0, f"mesh cli.train rank {rank} failed:\n{out[-4000:]}"
+            assert "done: best epoch" in out, out[-2000:]
+        return time.perf_counter() - t0
+
+    t_train = launch(["-e", "2"])
+    ckpt = os.path.join(mesh_dir, "model-checkpoints")
+    with open(os.path.join(ckpt, "train_log.jsonl")) as f:
+        hist = [r for r in map(json.loads, f) if "epoch" in r]
+    assert [h["epoch"] for h in hist] == [0, 1], hist
+    assert all(h["dropped_arcs"] == 0.0 for h in hist), hist
+    best = max(h["val_recall"] for h in hist)
+    prepared = load_prepared(os.path.join(mesh_dir, "data/prepared"))
+    pop = popularity_recall_at_k(prepared, k=20)
+    assert best >= CLI_POPULARITY_FACTOR * pop, (best, pop)
+    assert abs(best - one_device_best) <= MESH_CLI_RECALL_TOL, (best, one_device_best)
+    t_resume = launch(["-e", "3", "--resume"])
+    with open(os.path.join(ckpt, "train_log.jsonl")) as f:
+        resumed = [r for r in map(json.loads, f) if "epoch" in r]
+    assert [h["epoch"] for h in resumed] == [0, 1, 2], resumed
+    leaves, meta = load_checkpoint(ckpt, LAST_NAME)
+    assert meta["epoch"] == 2 and leaves[0].shape == (prepared.n_users + prepared.n_items, DIM)
+    recalls = " ".join(f"{h['val_recall']:.6f}" for h in hist)
+    epochs = " ".join(f"{h['epoch_s']:.2f}" for h in hist)
+    return (
+        f"mesh cli.train (2 ranks sharing the card, gloo): {t_train:.1f} s, val R@20 {recalls} "
+        f"(one device best {one_device_best:.6f}, popularity {pop:.6f}), epoch_s {epochs}; "
+        f"--resume {t_resume:.1f} s, epoch 2 val R@20 {resumed[-1]['val_recall']:.6f}"
+    )
 
 
 def writer_bytes_check(params: dict, work: str) -> str:
@@ -2133,6 +2475,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase(14, "mesh", t0, detail)
 
+    # The multi-device train steps on the same operators: counts from 0
+    # here, in this process and in every rank.
+    t0 = time.perf_counter()
+    detail, path_launches["mesh_train"], train_ranks, train_world1_k1 = mesh_train_path(
+        split, cfg, params, svc.fast_bipartite, fb16, prepared, args.seed, dev
+    )
+    torch.cuda.empty_cache()
+    phase(15, "mesh_train", t0, detail)
+
     # Gradient path: the exact fast batched loss and the full fast forward's
     # loss against the layered loss, on one fixed batch.
     t0 = time.perf_counter()
@@ -2324,6 +2675,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         detail = cli_path(work)
         path_launches["cli"] = read_launches()
+        mesh_cli_detail = mesh_cli_path(work)
         eda_detail = eda_path(work)
         cli_rows = check_cli_kernels(work, dev)
         reset_launches()
@@ -2339,15 +2691,22 @@ def main(argv=None) -> int:
             row["cli"] = {key: cli_rows[row["name"]][key] for key in CLI_ROW_KEYS}
         mode = {"segreduce_f32": "f32", "segreduce_bf16": "bf16"}.get(row["name"])
         if mode:  # the same kernel held at each mesh rank's shapes
-            row["mesh"] = [
-                {"rank": r["rank"], **{d: r["k1"][f"{mode}_{d}"] for d in ("to_items", "to_users")}}
-                for r in mesh_ranks
-            ]
+            for key, ranks in (("mesh", mesh_ranks), ("mesh_train", train_ranks)):
+                held = [r for r in ranks if f"{mode}_to_items" in r["k1"]]  # gloo GSPMD: bf16 only
+                if held:
+                    row[key] = [
+                        {"rank": r["rank"], **{d: r["k1"][f"{mode}_{d}"] for d in ("to_items", "to_users")}}
+                        for r in held
+                    ]
+            row["mesh_train_world1"] = {d: train_world1_k1[f"{mode}_{d}"] for d in ("to_items", "to_users")}
+        if row["name"] == "segreduce_cast_bf16":  # at each GSPMD rank's user table
+            row["mesh_train"] = [{"rank": r["rank"], **r["cast"]} for r in train_ranks]
     k1_cli = cli_rows["segreduce_bf16"]
     phase(
         12, "cli", t0,
         f"{detail}; at these shapes K1 bf16 max_abs_err {k1_cli['max_abs_err']:.3e} kernel_ms "
-        f"{k1_cli['ms']:.4f} plain_ms {k1_cli['plain_ms']:.4f}, its cast exact; {eda_detail}; "
+        f"{k1_cli['ms']:.4f} plain_ms {k1_cli['plain_ms']:.4f}, its cast exact; {mesh_cli_detail}; "
+        f"{eda_detail}; "
         f"{infer_detail}; {svd_detail}",
     )
 

@@ -7,9 +7,25 @@
 Runs on ``cuda`` unless ``--device cpu`` is given. After the ETL, the
 prepared dataset artifact is saved to ``data_dir`` so that serving can
 start without redoing it; the ETL's seconds are logged in front of the
-training's records. The multi-host flags of the JAX CLI are accepted
-and refused: multi-device training waits for the port's multi-device slice
-(``ROADMAP.md`` §1, item 9), and no host may run as a job of its own.
+training's records.
+
+Multi-device training runs one process per device, every one of them this
+CLI with the same flags:
+
+    torchrun --nproc-per-node 2 -m gnn_ecommerce_tpu_torch.cli.train \
+        --edges u_i_weight.csv --mesh 2 --partition edge --fast bf16
+
+or with the flags ``--coordinator host:port --num-processes N --process-id
+i`` on each. Any multi-host signal (those flags, ``--distributed``, or
+torch's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``) reaches
+``parallel.distributed.init_distributed``, which raises on a partial world;
+so does JAX's ``JAX_COORDINATOR_ADDRESS`` here, which torch does not read.
+Each rank takes ``cuda:LOCAL_RANK`` (``cuda:0`` without it), or the CPU
+with ``--device cpu``; rank 0 alone writes the prepared artifact. The
+backend is NCCL on cards and gloo on the CPU. ``--backend gloo`` is a
+testing switch: with ``--device cuda:0`` on each, it lets several ranks
+share one card (which NCCL refuses), so that a mesh run can be tried where
+there is only one card; such a run says nothing of a mesh's speed.
 """
 from __future__ import annotations
 
@@ -18,10 +34,13 @@ import json
 import os
 import time
 
+import torch.distributed as dist
+
 from ..data.artifacts import save_prepared
 from ..data.events import Edges, events_to_edges, read_csv
 from ..data.prepare import prepare_splits, split_edges
 from ..data.synthetic import synthetic_events
+from ..parallel.distributed import world_rank
 from ..train.driver import train
 from .config import FrameworkConfig, WEIGHT_SCHEMES
 from .preprocess import load_events
@@ -58,17 +77,27 @@ def load_edges(args, cfg: FrameworkConfig) -> Edges:
     raise SystemExit("provide --edges, --events, --synthetic, or config paths")
 
 
+_TORCH_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
 def multi_host_requested(args) -> bool:
-    """Any multi-host signal: the bootstrap flags, or a launcher's
-    environment (JAX's coordinator address, torch's ``WORLD_SIZE > 1``)."""
+    """Any multi-host signal: the bootstrap flags or torch's launcher
+    variables (JAX's coordinator address raises in :func:`main`)."""
     return bool(
         args.distributed
         or args.coordinator
-        or (args.num_processes or 0) > 1
+        or args.num_processes is not None
         or args.process_id is not None
-        or os.environ.get("JAX_COORDINATOR_ADDRESS")
-        or int(os.environ.get("WORLD_SIZE", "1")) > 1
+        or any(k in os.environ for k in _TORCH_ENV)
     )
+
+
+def rank_device(device: str) -> str:
+    """``cuda`` becomes this rank's card, ``cuda:LOCAL_RANK``; any other
+    device (``cpu``, ``cuda:1``) is taken as it is."""
+    if device == "cuda":
+        return f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    return device
 
 
 def main(argv=None):
@@ -109,7 +138,8 @@ def main(argv=None):
     ap.add_argument("--scheme", choices=sorted(WEIGHT_SCHEMES), help="weight scheme")
     ap.add_argument("--resume", action="store_true", help="resume from last checkpoint")
     ap.add_argument(
-        "--mesh", type=int, help="devices to mesh (1=single; others wait for the multi-device slice)"
+        "--mesh", type=int,
+        help="devices to mesh: 1 = one device, N = the N ranks of the world, 0 = all of them",
     )
     ap.add_argument(
         "--partition", choices=["gspmd", "edge"], help="multi-device strategy"
@@ -127,17 +157,40 @@ def main(argv=None):
         help="save LAST every N epochs (0 = only at the end)",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--distributed", action="store_true", help="multi-host (refused)")
-    ap.add_argument("--coordinator", help="multi-host coordinator host:port (refused)")
-    ap.add_argument("--num-processes", type=int, help="total host processes (refused if > 1)")
-    ap.add_argument("--process-id", type=int, help="this host's process index (refused)")
+    ap.add_argument(
+        "--distributed", action="store_true",
+        help="join a torch.distributed world (from the flags below or torch's variables)",
+    )
+    ap.add_argument("--coordinator", help="the world's rendezvous host:port (or an init URL)")
+    ap.add_argument("--num-processes", type=int, help="ranks in the world")
+    ap.add_argument("--process-id", type=int, help="this process's rank")
+    ap.add_argument(
+        "--backend", choices=["nccl", "gloo"],
+        help="torch.distributed backend (default: nccl on cuda, gloo on cpu); a testing "
+        "switch: gloo with --device cuda:0 lets several ranks share one card",
+    )
     args = ap.parse_args(argv)
 
-    if multi_host_requested(args):
+    device = args.device
+    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise SystemExit(
-            "multi-host training is not ported yet (ROADMAP.md §1, item 9); "
-            "run one process on one device without the multi-host flags"
+            "JAX_COORDINATOR_ADDRESS is set: this CLI joins a torch.distributed world "
+            "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, or --coordinator, "
+            "--num-processes, --process-id)"
         )
+    if multi_host_requested(args):
+        from ..parallel.distributed import init_distributed
+
+        device = rank_device(args.device)
+        info = init_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            force=args.distributed,
+            backend=args.backend,
+            device=device,
+        )
+        print(f"distributed: {info}", flush=True)
 
     cfg = FrameworkConfig.load(args.config) if args.config else FrameworkConfig()
     if args.epochs is not None:
@@ -171,17 +224,22 @@ def main(argv=None):
     prepared = prepare_splits(tr, va, te)
     del tr, va, te
     etl_s = time.perf_counter() - t0
-    os.makedirs(cfg.data_dir, exist_ok=True)
-    save_prepared(prepared, cfg.data_dir)
-    print(f"prepared artifact -> {cfg.data_dir}", flush=True)
-    # The ETL's seconds (load, split, prepare) go to the training log, in
-    # front of the records that train() appends there.
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-    log_path = cfg.train.log_path or os.path.join(cfg.checkpoint_dir, "train_log.jsonl")
-    with open(log_path, "a") as f:
-        f.write(json.dumps({"etl_s": etl_s, "data_dir": cfg.data_dir}) + "\n")
+    if world_rank()[1] == 0:  # one writer of the shared artifacts
+        os.makedirs(cfg.data_dir, exist_ok=True)
+        save_prepared(prepared, cfg.data_dir)
+        print(f"prepared artifact -> {cfg.data_dir}", flush=True)
+        # The ETL's seconds (load, split, prepare) go to the training log, in
+        # front of the records that train() appends there.
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        log_path = cfg.train.log_path or os.path.join(cfg.checkpoint_dir, "train_log.jsonl")
+        with open(log_path, "a") as f:
+            f.write(json.dumps({"etl_s": etl_s, "data_dir": cfg.data_dir}) + "\n")
 
-    result = train(prepared, cfg.train, device=args.device)
+    try:
+        result = train(prepared, cfg.train, device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print(
         f"done: best epoch {result.best_epoch} "
         f"val R@{cfg.train.k} {result.best_val_recall:.6f} | "

@@ -16,6 +16,12 @@ from ..graph.build import BipartiteGraph
 from ..ops.propagate import propagate_segment
 
 
+def uniform_alphas(num_layers: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """The default layer weights, 1/(num_layers+1) each, as an f32 vector
+    made on ``device``."""
+    return torch.full((num_layers + 1,), 1.0 / (num_layers + 1), dtype=torch.float32, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class LightGCNConfig:
     """Model hyperparameters."""
@@ -28,10 +34,7 @@ class LightGCNConfig:
 
     def alphas(self, device: str | torch.device = "cpu") -> torch.Tensor:
         if self.alpha is None:
-            return torch.full(
-                (self.num_layers + 1,), 1.0 / (self.num_layers + 1),
-                dtype=torch.float32, device=device,
-            )
+            return uniform_alphas(self.num_layers, device)
         a = torch.as_tensor(self.alpha, dtype=torch.float32, device=device)
         if a.shape != (self.num_layers + 1,):
             raise ValueError(f"alpha needs {self.num_layers + 1} entries")

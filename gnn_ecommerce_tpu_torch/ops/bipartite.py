@@ -35,6 +35,7 @@ import torch
 from .. import native
 from ..device import mm_f32, resolve_device
 from ..graph.build import BipartiteGraph
+from ..models.lightgcn import uniform_alphas
 from .spmm_fast import (
     EllPlan,
     SegReducePlan,
@@ -355,6 +356,12 @@ class FastBipartite:
     def n_items(self) -> int:
         return self.split.n_items
 
+    def to_items(self, x_users: torch.Tensor) -> torch.Tensor:
+        return fast_to_items(x_users, self.fops)
+
+    def to_users(self, x_items: torch.Tensor) -> torch.Tensor:
+        return fast_to_users(x_items, self.fops)
+
 
 def build_fast_bipartite(
     graph: BipartiteGraph,
@@ -424,15 +431,9 @@ def _item_chain(params: dict, fb: FastBipartite, num_layers: int, alpha):
     """(E_u, out_i, S_i, alpha) of :func:`item_chain_core` over the unified
     table; ``alpha=None`` is uniform 1/(L+1)."""
     E = params["embedding"]
-    if alpha is None:
-        alpha = torch.full(
-            (num_layers + 1,), 1.0 / (num_layers + 1), dtype=torch.float32
-        )
-    alpha = alpha.to(E.device)
+    alpha = (uniform_alphas(num_layers) if alpha is None else alpha).to(E.device)
     E_u, E_i = E[: fb.n_users], E[fb.n_users :]
-    out_i, S_i = item_chain_core(
-        E_u, E_i, functools.partial(fast_to_items, fops=fb.fops), fb.item_op, num_layers, alpha
-    )
+    out_i, S_i = item_chain_core(E_u, E_i, fb.to_items, fb.item_op, num_layers, alpha)
     return E_u, out_i, S_i, alpha
 
 
@@ -443,7 +444,7 @@ def fast_get_embedding(
     exact restructure of the layered ``get_embedding``. Returns the unified
     [n_users + n_items, D] final embedding in the table's dtype."""
     E_u, out_i, S_i, alpha = _item_chain(params, fb, num_layers, alpha)
-    out_u = alpha[0] * E_u.float() + fast_to_users(S_i, fb.fops)
+    out_u = alpha[0] * E_u.float() + fb.to_users(S_i)
     return torch.cat([out_u, out_i]).to(params["embedding"].dtype)
 
 
@@ -474,19 +475,26 @@ def fast_batch_embeddings(
     """
     E_u, out_i, S_i, alpha = _item_chain(params, fb, num_layers, alpha)
     csr = fb.user_csr
-    B = users.shape[0]
     start = csr.indptr[users]
-    deg = csr.indptr[users + 1] - start
+    agg, dropped = batch_messages(start, csr.indptr[users + 1] - start, csr.item, csr.w, S_i, edge_cap)
+    u_out = alpha[0] * E_u[users].float() + agg
+    n_users = fb.n_users
+    return u_out, out_i[pos - n_users], out_i[neg - n_users], dropped
+
+
+def batch_messages(start, deg, item, w, S_i, edge_cap: int):
+    """Each batch slot's messages ``Σ w·S_i[item]`` over its arcs, which are
+    ``item[start:start+deg]`` / ``w[...]`` of a CSR: the batch's arcs in
+    slot order fill a fixed ``edge_cap`` buffer and are summed by slot.
+    Returns (agg [B, D] f32, the 0-d int64 count of arcs beyond
+    ``edge_cap``, which are dropped)."""
+    B = start.shape[0]
     cum = torch.cumsum(deg, 0)
     total = cum[-1]
-    k = torch.arange(edge_cap, dtype=torch.int64, device=users.device)
+    k = torch.arange(edge_cap, dtype=torch.int64, device=start.device)
     slot = torch.searchsorted(cum, k, right=True).clamp(max=B - 1)
     valid = k < total
     e_idx = torch.where(valid, start[slot] + (k - (cum - deg)[slot]), 0)
-    w = torch.where(valid, csr.w[e_idx], 0.0)
-    msgs = S_i.index_select(0, csr.item[e_idx]) * w[:, None]
+    msgs = S_i.index_select(0, item[e_idx].long()) * torch.where(valid, w[e_idx], 0.0)[:, None]
     agg = torch.zeros(B, S_i.shape[1], dtype=torch.float32, device=S_i.device)
-    agg = agg.index_add(0, slot, msgs)
-    u_out = alpha[0] * E_u[users].float() + agg
-    n_users = fb.n_users
-    return u_out, out_i[pos - n_users], out_i[neg - n_users], (total - edge_cap).clamp(min=0)
+    return agg.index_add(0, slot, msgs), (total - edge_cap).clamp(min=0)

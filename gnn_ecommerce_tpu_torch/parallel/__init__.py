@@ -1,15 +1,11 @@
 """Multi-device paths over torch.distributed: one process per shard.
 
-Counterpart of ``gnn_ecommerce_tpu/parallel``: meshes (``mesh.py``), the
-bootstrap and collectives (``distributed.py``), the fast edge partition's
-forward (``edge_partition_fast.py``, with ``ops/spmm_sharded.py``) and the
-sharded evaluation (``sharded_eval.py``).
-
-Not ported yet, and so not exported: the training half of these paths,
-``make_sharded_train_step``, ``make_sharded_fast_train_step``,
-``shard_fast_bipartite``, ``shard_graph``, ``shard_params``,
-``EdgePartition``, ``build_edge_partition``, ``make_explicit_fns`` and
-``pad_params`` (and ``make_fast_edge_fns``' ``train_step`` raises).
+Counterpart of ``gnn_ecommerce_tpu/parallel``, with its names: meshes
+(``mesh.py``), the bootstrap and collectives (``distributed.py``), the
+GSPMD steps (``sharded_train.py``), the explicit edge partition
+(``edge_partition.py``), the fast edge partition (``edge_partition_fast.py``,
+with ``ops/spmm_sharded.py``) and the sharded evaluation
+(``sharded_eval.py``).
 
 Names resolve at first use, so that ``ops/spmm_sharded.py`` can import this
 package's collectives while this package exports what builds on it.
@@ -19,6 +15,15 @@ import importlib
 _EXPORTS = {
     "make_mesh": "mesh",
     "mesh_factorization": "mesh",
+    "make_sharded_train_step": "sharded_train",
+    "make_sharded_fast_train_step": "sharded_train",
+    "shard_fast_bipartite": "sharded_train",
+    "shard_graph": "sharded_train",
+    "shard_params": "sharded_train",
+    "EdgePartition": "edge_partition",
+    "build_edge_partition": "edge_partition",
+    "make_explicit_fns": "edge_partition",
+    "pad_params": "edge_partition",
     "make_sharded_eval_fn": "sharded_eval",
     "sharded_evaluate": "sharded_eval",
     "FastEdgePartition": "edge_partition_fast",

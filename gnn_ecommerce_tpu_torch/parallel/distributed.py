@@ -10,8 +10,23 @@ world (``parallel/mesh.py``), and the collectives that GSPMD and
 |---|---|
 | ``psum`` | :func:`all_reduce_sum` |
 | an all-gather of row-sharded outputs | :func:`all_gather_rows` |
+| GSPMD's copies of a ``model`` band over ``data`` | :func:`broadcast_rows` of its gradient |
+| ``all_to_all`` | :func:`all_to_all_rows` |
 | ``replicate_tree`` (an all-gather to every host) | a broadcast from rank 0 |
 | ``multihost_utils`` barrier / allgather | ``dist.barrier`` / ``dist.all_gather`` |
+
+A JAX program differentiates through its collectives; here the training
+steps do so through three autograd Functions, whose backward follows from
+whether the forward's input is replicated (the same on every rank, with the
+same cotangent everywhere) or this rank's own:
+
+| forward | backward |
+|---|---|
+| :func:`sum_partials`: an all-reduce of this rank's partial | the cotangent as it is (it is replicated) |
+| :func:`sum_grads`: the identity on a replicated input | an all-reduce of each rank's partial cotangent |
+| :func:`exchange_rows`: an all-to-all | the reverse all-to-all |
+
+Their results are new tensors: nothing that autograd saved is overwritten.
 
 The backend is NCCL for a world on ``cuda`` and gloo on ``cpu``; a caller
 may ask for gloo on ``cuda`` (two ranks sharing one card), and the backend
@@ -30,6 +45,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -103,6 +119,14 @@ def init_distributed(
     }
 
 
+def world_rank() -> tuple[int, int]:
+    """(world size, rank) of the initialized torch.distributed world, or
+    (1, 0) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> torch.Tensor:
     """``psum`` over ``axis`` (``None``: the whole mesh), in place; returns
     ``t``. The identity on a mesh with no world."""
@@ -123,6 +147,89 @@ def all_gather_rows(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> 
     out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t.contiguous(), group=group)
     return out
+
+
+def broadcast_rows(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``t`` of the rank at index 0 of ``axis`` (every other coordinate
+    this rank's), in place on every rank of ``axis``; returns ``t``. The
+    identity on a mesh with no world."""
+    in_world, group = mesh.group(axis)
+    if in_world:
+        coords = mesh.coords
+        coords[axis] = 0
+        src = int(np.ravel_multi_index([coords[a] for a in mesh.axis_names], mesh.axis_sizes))
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def all_to_all_rows(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> torch.Tensor:
+    """``all_to_all`` of row blocks: ``t`` [n·rows, ...] holds one block of
+    rows for each rank of ``axis`` in rank order; the result holds, in rank
+    order, the block every rank addressed to this one. The identity on a
+    mesh with no world."""
+    in_world, group = mesh.group(axis)
+    if not in_world:
+        return t
+    n = mesh.size if axis is None else mesh.shape[axis]
+    if t.shape[0] % n:
+        raise ValueError(f"{t.shape[0]} rows do not split over {n} ranks")
+    out = torch.empty_like(t, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, t.contiguous(), group=group)
+    return out
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return all_reduce_sum(t.clone(memory_format=torch.contiguous_format), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return all_reduce_sum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ExchangeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        out = all_to_all_rows(t, mesh, axis)
+        return out.clone() if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_rows(g, ctx.mesh, ctx.axis), None, None
+
+
+def sum_partials(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> torch.Tensor:
+    """Differentiable ``psum`` of this rank's partial ``t`` over ``axis``,
+    for a result that every rank then uses alike: the cotangent reaches
+    ``t`` unchanged (each rank's partial feeds the sum once)."""
+    return _SumPartials.apply(t, mesh, axis)
+
+
+def sum_grads(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> torch.Tensor:
+    """``t`` itself, a replicated tensor that this rank reads in part (its
+    arcs, its rows of a batch): the backward all-reduces the ranks' partial
+    cotangents over ``axis``, so that every rank gets the whole gradient."""
+    return _SumGrads.apply(t, mesh, axis)
+
+
+def exchange_rows(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> torch.Tensor:
+    """Differentiable :func:`all_to_all_rows`: its backward sends every
+    cotangent block back to the rank that sent the block."""
+    return _ExchangeRows.apply(t, mesh, axis)
 
 
 def _tensors(tree) -> list:

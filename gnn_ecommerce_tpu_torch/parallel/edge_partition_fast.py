@@ -25,8 +25,16 @@ owner(u) in both directions with one weight), so each direction's gradient
 is the other applied to the cotangent. K1 (``csrc/segreduce.cu``) runs in
 both directions on the shard's plans, in f32 or in bf16 with its cast.
 
-The training step of this strategy (``make_fast_edge_fns``' ``train_step``)
-is not ported yet: calling it raises.
+The train step (``make_fast_edge_fns``) samples the same batch on every
+shard (one generator seed) and computes the replicated loss everywhere; a
+batch user's layer-0 row and its messages come from the shard that owns it
+(one all-reduce each). Its gradients follow the forward's
+layout: ``emb_users`` gets this shard's rows only, with no collective
+(``ep_to_items``' backward is ``local_ep_to_users``); ``emb_items`` gets
+the whole gradient on every shard, the items' partial gradients being
+all-reduced where the shards read the replicated activations in part (the
+B_ii band, the batch's messages). Adam then keeps the item rows and their
+moments equal on every shard.
 """
 from __future__ import annotations
 
@@ -35,11 +43,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import mm_f32
-from ..ops.bipartite import _DTYPES, BipartiteSplit, heavy_tail, item_chain_core
+from ..device import divisor, mm_f32
+from ..models.lightgcn import uniform_alphas
+from ..models.losses import bpr_loss
+from ..ops.bipartite import _DTYPES, BipartiteSplit, batch_messages, heavy_tail, item_chain_core
 from ..ops.spmm_fast import build_segreduce_plan
 from ..ops.spmm_sharded import PlanStack, local_segreduce, user_rows_per_shard
-from .distributed import all_gather_rows, all_reduce_sum
+from ..train.step import make_train_fns
+from .distributed import all_gather_rows, all_reduce_sum, sum_grads, sum_partials
 from .mesh import Mesh
 
 # The mesh axis that carries the user shards.
@@ -99,16 +110,33 @@ class ItemBand:
         return self.rows.dtype
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """[n_items, n] f32 = B_ii @ x (x: [I, n] in B_ii's dtype)."""
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "the banded B_ii product has no backward: the training step "
-                "of the fast edge partition is not ported"
-            )
-        part = mm_f32(self.rows, x)
-        if part.shape[0] < self.band:
-            part = torch.cat([part, part.new_zeros(self.band - part.shape[0], part.shape[1])])
-        return all_gather_rows(part, self.mesh, AXIS)[: self.n_items]
+        """[n_items, n] f32 = B_ii @ x (x: [I, n] in B_ii's dtype, the same
+        on every shard); differentiable in ``x``."""
+        return _BandProduct.apply(x, self)
+
+
+class _BandProduct(torch.autograd.Function):
+    """Forward: this shard's band ``B_band @ x``, all-gathered. Backward
+    (the cotangent ``g`` is the same on every shard): ``B_bandᵀ @ g[band]``,
+    each shard's part of ``B_iiᵀ g = B_ii g``, all-reduced in f32. As on
+    one device (``device._MmBf16``), a bf16 band takes the cotangent rounded
+    to bf16 and its result is rounded once, after the sum."""
+
+    @staticmethod
+    def forward(ctx, x, band: ItemBand):
+        ctx.band, ctx.dtype = band, x.dtype
+        part = mm_f32(band.rows, x)
+        if part.shape[0] < band.band:
+            part = torch.cat([part, part.new_zeros(band.band - part.shape[0], part.shape[1])])
+        return all_gather_rows(part, band.mesh, AXIS)[: band.n_items]
+
+    @staticmethod
+    def backward(ctx, g):
+        band = ctx.band
+        lo = min(band.mesh.index(AXIS) * band.band, band.n_items)
+        g_band = g[lo : lo + band.rows.shape[0]].to(band.dtype)
+        part = mm_f32(band.rows.T, g_band)
+        return all_reduce_sum(part, band.mesh, AXIS).to(ctx.dtype), None
 
 
 def place_item_op(item_op: torch.Tensor, mesh: Mesh, shard: int | None = None) -> ItemBand:
@@ -319,7 +347,7 @@ def merge_ep_view(tree, fep: FastEdgePartition):
 
 
 # ---------------------------------------------------------------------------
-# The embedding function
+# The embedding and training functions
 # ---------------------------------------------------------------------------
 
 
@@ -329,26 +357,64 @@ def make_fast_edge_fns(cfg, optimizer, mesh: Mesh, fep: FastEdgePartition, batch
 
     embed(params, fep) -> [n_users + n_items, D] f32, the final embedding
     on every shard, from params in the split layout (:func:`split_ep_tree`).
-
-    ``train_step`` raises: the training half of this strategy is not
-    ported yet."""
+    train_step(params, opt_state, fep, sdata, generator) -> (params,
+    opt_state, metrics): one step on the batch that ``generator`` draws
+    (every shard seeds its generator alike, so every shard draws it), with
+    ``optimizer`` (``train.step.Adam``) over the split layout, in place;
+    ``train_step.on_batch(params, opt_state, fep, users, pos, neg)`` takes a
+    given batch and ``train_step.loss_fn(params, fep, users, pos, neg) ->
+    (loss, (bpr, reg, dropped))`` is the loss. ``dropped`` sums every
+    shard's batch arcs beyond ``edge_cap`` (the JAX package's count)."""
     L = cfg.num_layers
-    n_users = fep.n_users
+    n_users, R = fep.n_users, fep.rows_per_shard
 
-    def embed(params: dict, fep_: FastEdgePartition) -> torch.Tensor:
+    def chain(params: dict, fep_: FastEdgePartition):
+        """(alpha, out_i, S_i) of the item chain over the shards."""
         E_u = params["emb_users"]
-        alpha = torch.full((L + 1,), 1.0 / (L + 1), dtype=torch.float32, device=E_u.device)
-        out_i, S_i = item_chain_core(
+        alpha = uniform_alphas(L, E_u.device)
+        return alpha, *item_chain_core(
             E_u, params["emb_items"], lambda x: ep_to_items(x, fep_), fep_.item_op, L, alpha
         )
-        out_u = alpha[0] * E_u.float() + ep_to_users(S_i, fep_)
+
+    def embed(params: dict, fep_: FastEdgePartition) -> torch.Tensor:
+        alpha, out_i, S_i = chain(params, fep_)
+        out_u = alpha[0] * params["emb_users"].float() + ep_to_users(S_i, fep_)
         users = all_gather_rows(out_u, fep_.mesh, AXIS)[:n_users]
         return torch.cat([users, out_i])
 
-    def train_step(*args, **kwargs):
-        raise NotImplementedError(
-            "the fast edge partition's train step is not ported yet "
-            "(TrainConfig.mesh_devices must be 1)"
-        )
+    def batch_partial(E_u_loc, fep_: FastEdgePartition, S_i, users):
+        """This shard's share of the batch users' aggregation: the layer-0
+        rows of the users it owns and the messages along their arcs (all of
+        a user's arcs live on its owner), each summed over the shards. The
+        one-device ``ops.bipartite.fast_batch_embeddings`` per shard.
 
+        Every shard records the same autograd graph whatever its data (a
+        shard without users gathers one arc of weight 0): the backward's
+        collectives then run in the same order on every shard."""
+        loc = users - fep_.shard * R
+        owned = (loc >= 0) & (loc < R)
+        locc = loc.clamp(0, R - 1)
+        start = fep_.indptr_loc[locc]
+        deg = torch.where(owned, fep_.indptr_loc[locc + 1] - start, 0)
+        item, weight = fep_.batch_item, fep_.batch_w
+        if not item.numel():  # a shard with no users: one arc of weight 0
+            item, weight = item.new_zeros(1), weight.new_zeros(1)
+        agg, dropped = batch_messages(start, deg, item, weight, sum_grads(S_i, fep_.mesh, AXIS), edge_cap)
+        e0 = torch.where(owned[:, None], E_u_loc[locc].float(), 0.0)
+        return (sum_partials(e0, fep_.mesh, AXIS), sum_partials(agg, fep_.mesh, AXIS),
+                all_reduce_sum(dropped, fep_.mesh, AXIS))
+
+    def loss_fn(params: dict, fep_: FastEdgePartition, users, pos, neg):
+        alpha, out_i, S_i = chain(params, fep_)
+        e_u, agg, dropped = batch_partial(params["emb_users"], fep_, S_i, users)
+        u_out = alpha[0] * e_u + agg
+        p_out, n_out = out_i[pos - n_users], out_i[neg - n_users]
+        bpr = bpr_loss((u_out * p_out).sum(-1), (u_out * n_out).sum(-1))
+        # Ego-embedding L2 on the batch rows, as models.losses.reg_loss sums it.
+        E_i32 = params["emb_items"].float()
+        sq = sum(e.pow(2).sum() for e in (e_u, E_i32[pos - n_users], E_i32[neg - n_users]))
+        reg = decay * 0.5 * sq / divisor(users.shape[0], sq.device)
+        return bpr + reg, (bpr, reg, dropped)
+
+    train_step, _ = make_train_fns(cfg, optimizer, batch_size, decay, loss_fn=loss_fn)
     return embed, train_step

@@ -12,6 +12,10 @@ params by sorted name (``[0]['embedding']``), then the Adam state as optax
 lays it out (``[1][0].count``, ``[1][0].mu['embedding']``,
 ``[1][0].nu['embedding']``). The port's :class:`~.step.AdamState` ``step``,
 ``exp_avg`` and ``exp_avg_sq`` are optax's count, mu and nu.
+
+In a ``torch.distributed`` world of several ranks only rank 0 writes (every
+rank holds the same gathered leaves; several writers would tear the
+npz/meta pair), as the JAX package lets only process 0 write.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from ..parallel.distributed import world_rank
 from .step import AdamState
 
 BEST_NAME = "LightGCN_best"
@@ -61,8 +66,11 @@ def save_checkpoint(
     """Write one checkpoint: the npz under a tmp name, its rename, then
     ``meta.json`` (also renamed into place) holding the npz's sha256, so a
     crash between the two renames is caught by :func:`load_checkpoint`.
-    Leaves may be tensors (any device) or numpy arrays."""
+    Leaves may be tensors (any device) or numpy arrays. A rank other than 0
+    writes nothing and returns the path."""
     path = os.path.join(directory, name)
+    if world_rank()[1] != 0:
+        return path
     os.makedirs(path, exist_ok=True)
     paths, leaves = checkpoint_leaves(params, opt_state)
     npz_path = os.path.join(path, "checkpoint.npz")

@@ -1,10 +1,19 @@
-"""Training driver for one device: epoch loop with per-epoch validation,
-best-model checkpointing, structured logging and resume.
+"""Training driver: epoch loop with per-epoch validation, best-model
+checkpointing, structured logging and resume.
 
-Counterpart of ``gnn_ecommerce_tpu/train/driver.py`` on one device: the
+Counterpart of ``gnn_ecommerce_tpu/train/driver.py``: on one device the
 layered branch (``fast_bipartite="off"``) and the fast branches (``"f32"``
 exact, ``"bf16"`` the main configuration) with the batched train forward
-``fast_batch_embeddings``. As there:
+``fast_batch_embeddings``; on a mesh (``mesh_devices`` > 1, one
+``torch.distributed`` process per device, every process running this
+driver) the JAX driver's three branches: ``partition="edge"`` with the fast
+edge partition (``parallel/edge_partition_fast.py``) or, with
+``fast_bipartite="off"``, the explicit one (``parallel/edge_partition.py``),
+and ``partition="gspmd"`` (``parallel/sharded_train.py``), each evaluated
+by ``parallel/sharded_eval.py``. On a mesh, rank 0 alone logs and writes
+checkpoints, which hold the unpadded, unified table of the one-device run
+(each rank's layout is gathered for them, so every rank holds what rank 0
+writes); saves are synchronous, and every flush is a barrier. As there:
 - the final test evaluation uses the best epoch's params;
 - every epoch's losses and metrics go to a JSONL log;
 - resume restores params, Adam state and the epoch counter from LAST, and
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import threading
@@ -44,9 +54,12 @@ from ..eval.evaluate import build_eval_buckets, evaluate_bucketed
 from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig, get_embedding, init_params
 from ..ops.bipartite import build_fast_bipartite, fast_batch_embeddings, fast_get_embedding
+from ..parallel.distributed import barrier, world_rank
 from ..sampling.bpr import make_sampler_data
-from .checkpoint import BEST_NAME, LAST_NAME, load_checkpoint, restore_into, save_checkpoint
-from .step import Adam, AdamState, make_train_fns
+from .checkpoint import (
+    BEST_NAME, LAST_NAME, load_checkpoint, restore_into, save_checkpoint,
+)
+from .step import Adam, AdamState, make_run_steps, make_train_fns
 
 # Seconds to wait before the one retry of an operator build that ran out of
 # device memory.
@@ -76,9 +89,12 @@ class TrainConfig:
     # Chrome trace is written into this directory.
     profile_dir: Optional[str] = None
     profile_epoch: int = 1
-    # Devices to train over. Only 1 is ported; the mesh branches wait for the
-    # multi-device slice.
+    # Devices to train over: 1 = one device; N > 1 = a mesh of the N ranks of
+    # the initialized torch.distributed world (one device each); 0 = every
+    # rank of the world. Anything but the world's size (or 0) raises.
     mesh_devices: int = 1
+    # Mesh strategy: "gspmd" (row bands of the table over a (data, model)
+    # mesh) or "edge" (the fast or the explicit edge partition).
     partition: str = "gspmd"
     # "off" (layered), "f32" (exact fast) or "bf16" (bf16 B_ii and messages).
     fast_bipartite: str = "off"
@@ -314,18 +330,25 @@ def train(
 def _train_impl(
     prepared: PreparedData, config: TrainConfig, verbose: bool, dev: torch.device, _state: dict
 ) -> TrainResult:
-    if config.mesh_devices != 1:
-        raise NotImplementedError(
-            f"mesh_devices={config.mesh_devices}: multi-device training waits for "
-            "the port's multi-device slice; train on one device (mesh_devices=1)"
+    world, rank = world_rank()
+    n_mesh = config.mesh_devices or world
+    if n_mesh != world:
+        raise ValueError(
+            f"mesh_devices={config.mesh_devices}, but the torch.distributed world has "
+            f"{world} rank(s): mesh_devices must be the world's size (or 0), one rank "
+            "per device"
         )
     if config.fast_bipartite not in ("off", "f32", "bf16"):
         raise ValueError(f"fast_bipartite must be off, f32 or bf16: {config.fast_bipartite!r}")
+    if n_mesh > 1 and config.partition not in ("gspmd", "edge"):
+        raise ValueError(f"partition must be gspmd or edge: {config.partition!r}")
+    is_main = rank == 0
     t_setup0 = time.perf_counter()
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     log_path = config.log_path or os.path.join(config.checkpoint_dir, "train_log.jsonl")
-    log_f = open(log_path, "a")
+    log_f = open(log_path if is_main else os.devnull, "a")
     _state["log_f"] = log_f
+    verbose = verbose and is_main
 
     def log(record: dict):
         log_f.write(json.dumps(record) + "\n")
@@ -335,11 +358,11 @@ def _train_impl(
 
     fast = config.fast_bipartite != "off"
     n_users, n_items = prepared.n_users, prepared.n_items
-    # The fast branch builds its plans from the host graph; the layered
-    # branch propagates over the graph on the device.
+    # The fast branches and the mesh branches build from the host graph;
+    # the one-device layered branch propagates over the graph on the device.
     graph = build_graph(
         prepared.edge_user, prepared.edge_item_node, prepared.edge_weight,
-        n_users, n_items, items_offset=True, device="cpu" if fast else dev,
+        n_users, n_items, items_offset=True, device="cpu" if fast or n_mesh > 1 else dev,
     )
     num_edges, num_arcs = len(prepared.edge_user), int(graph.src.shape[0])
     sdata = make_sampler_data(prepared.sampler, n_users, n_items, dev)
@@ -378,9 +401,22 @@ def _train_impl(
             time.sleep(RETRY_WAIT_S)
             return build()
 
-    if fast:
-        bf16 = config.fast_bipartite == "bf16"
-        mode = "bfloat16" if bf16 else "float32"
+    # Identity on one device; a mesh branch maps its layout to the unified,
+    # unpadded checkpoint layout and back.
+    ckpt_view = lambda tree: tree
+    post_restore = lambda p: p
+    mesh = None
+    bf16 = config.fast_bipartite == "bf16"
+    mode = "bfloat16" if bf16 else "float32"
+    edge_cap = config.batch_edge_cap or max(64 * config.batch_size, 8192)
+    if n_mesh > 1:
+        mesh, step_graph, step, compute_embedding, ckpt_view, post_restore, params, opt_state = (
+            _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch, n_mesh,
+                         dev, edge_cap, log, build_with_retry)
+        )
+        run_steps = make_run_steps(step)
+        graph = None  # superseded by the branch's layout
+    elif fast:
         t0 = time.perf_counter()
         fb = build_with_retry(
             lambda: build_fast_bipartite(
@@ -405,7 +441,6 @@ def _train_impl(
             "plans_s": fb.build_seconds["plans"],
         })
         graph = None  # superseded by fb
-        edge_cap = config.batch_edge_cap or max(64 * config.batch_size, 8192)
         _, run_steps = make_train_fns(
             cfg, optimizer, config.batch_size, config.decay,
             sample_replace=config.sample_replace,
@@ -423,12 +458,19 @@ def _train_impl(
         step_graph = graph
         compute_embedding = lambda p: get_embedding(p, graph, cfg)
 
+    if mesh is not None:
+        from ..parallel.sharded_eval import make_sharded_eval_fn
+
+        # Eval users split over every rank; per-bucket sums all-reduced.
+        eval_buckets = make_sharded_eval_fn(mesh, n_users, config.k, mask_mode=config.mask_mode)
+    else:
+        eval_buckets = lambda emb, buckets: evaluate_bucketed(
+            emb, buckets, n_users, config.k, mask_mode=config.mask_mode
+        )
+
     def evaluate_split(p: dict, buckets) -> tuple[float, float]:
         with torch.no_grad():
-            final_emb = compute_embedding(p)
-            return evaluate_bucketed(
-                final_emb, buckets, n_users, config.k, mask_mode=config.mask_mode
-            )
+            return eval_buckets(compute_embedding(p), buckets)
 
     log({
         "msg": (
@@ -439,7 +481,9 @@ def _train_impl(
     })
 
     writer = None
-    if config.async_saves:
+    if config.async_saves and world > 1:
+        log({"msg": "async saves: off on a mesh of processes (rank 0 writes synchronously)"})
+    elif config.async_saves:
         writer = CheckpointWriter(
             config.checkpoint_dir, config.hyperparams(), duty=config.async_save_duty
         )
@@ -452,7 +496,9 @@ def _train_impl(
         })
 
     def do_save(params_t: dict, opt_t: AdamState, targets: list) -> None:
-        """Write (params_t, opt_t) to every (name, meta kwargs) of targets."""
+        """Write (params_t, opt_t) to every (name, meta kwargs) of targets.
+        On a mesh the caller has gathered them on every rank, and
+        ``save_checkpoint`` writes on rank 0 only."""
         if writer is None:
             for name, kw in targets:
                 save_checkpoint(
@@ -465,6 +511,10 @@ def _train_impl(
     def flush_saves() -> None:
         if writer is not None:
             writer.flush()
+        if world > 1:
+            # Readers (the best-restore, a resume) must not race rank 0's
+            # writes: every rank flushes at the same points of the loop.
+            barrier()
 
     history = []
     best_recall = best_precision = 0.0
@@ -505,9 +555,11 @@ def _train_impl(
         t_train = time.perf_counter() - t0
         if profiling:
             os.makedirs(config.profile_dir, exist_ok=True)
-            trace = os.path.join(config.profile_dir, f"train_epoch{epoch}.json")
-            prof.export_chrome_trace(trace)
-            log({"msg": f"profiler trace (epoch {epoch}) -> {trace}"})
+            # One trace per rank on a mesh (rank 0 logs the names of all).
+            name = f"train_epoch{epoch}" + ("_rank{}" if world > 1 else "") + ".json"
+            prof.export_chrome_trace(os.path.join(config.profile_dir, name.format(rank)))
+            traces = [os.path.join(config.profile_dir, name.format(r)) for r in range(world)]
+            log({"msg": f"profiler trace (epoch {epoch}) -> {', '.join(traces)}"})
 
         precision, recall = evaluate_split(params, val_buckets)
         t_total = time.perf_counter() - t0
@@ -546,12 +598,12 @@ def _train_impl(
                     (LAST_NAME, dict(epoch=epoch, precision=precision, recall=recall))
                 )
             if cur_targets:
-                do_save(params, opt_state, cur_targets)
+                do_save(ckpt_view(params), ckpt_view(opt_state), cur_targets)
                 # Throttled mode: BEST improved in an earlier epoch of this
                 # window is persisted on the same cadence.
                 if best_dirty:
                     do_save(
-                        best_params, opt_state,
+                        ckpt_view(best_params), ckpt_view(opt_state),
                         [(BEST_NAME, dict(epoch=best_epoch, precision=best_precision,
                                           recall=best_recall))],
                     )
@@ -571,14 +623,16 @@ def _train_impl(
         params = best_params
         if best_dirty:
             do_save(
-                params, opt_state,
+                ckpt_view(params), ckpt_view(opt_state),
                 [(BEST_NAME, dict(epoch=best_epoch, precision=best_precision, recall=best_recall))],
             )
     elif best_epoch >= 0:
-        # The resumed window never beat the on-disk BEST: test that one.
+        # The resumed window never beat the on-disk BEST: test that one,
+        # restored in the checkpoint layout and laid out again for the run.
         flush_saves()
         leaves, _ = load_checkpoint(config.checkpoint_dir, BEST_NAME)
-        params, opt_state = restore_into(params, opt_state, leaves)
+        params, opt_state = restore_into(ckpt_view(params), ckpt_view(opt_state), leaves)
+        params = post_restore(params)
     t_final0 = time.perf_counter()
     test_precision, test_recall = evaluate_split(params, test_buckets)
     log({
@@ -616,6 +670,112 @@ def _train_impl(
         test_precision=test_precision,
         test_recall=test_recall,
     )
+
+
+def _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch: int, n_mesh: int,
+                 dev, edge_cap: int, log, build_with_retry):
+    """Lay the run out on a mesh of the world's ``n_mesh`` ranks (the JAX
+    driver's mesh branches). ``params`` and ``opt_state`` come in the
+    unified layout (a resumed ``opt_state`` too) and leave in the branch's.
+    Returns (mesh, step_graph, train_step, compute_embedding, ckpt_view,
+    post_restore, params, opt_state)."""
+    from ..parallel.mesh import make_mesh
+
+    bf16 = config.fast_bipartite == "bf16"
+    mode = "bfloat16" if bf16 else "float32"
+    op_dtype = torch.bfloat16 if bf16 else torch.float32
+    num_nodes = graph.num_nodes
+    t0 = time.perf_counter()
+
+    def laid_out(to_layout):
+        p = to_layout(params)
+        return p, optimizer.init(p) if start_epoch == 0 else to_layout(opt_state)
+
+    def own_band(layout):
+        """``layout`` with its own copy of this rank's B_ii band (a view
+        until then), so that the rest of B_ii can be freed."""
+        band = layout.item_op
+        return dataclasses.replace(layout, item_op=dataclasses.replace(band, rows=band.rows.clone()))
+
+    if config.partition == "edge" and config.fast_bipartite != "off":
+        from ..ops.bipartite import build_item_operator, split_graph
+        from ..parallel.edge_partition_fast import (
+            build_fast_edge_partition, make_fast_edge_fns, merge_ep_view, split_ep_tree,
+        )
+
+        mesh = make_mesh(n_mesh, axis_sizes=(n_mesh,), axis_names=("model",), device=dev)
+        split = split_graph(graph)
+        item_op = build_with_retry(
+            lambda: build_item_operator(split, dtype=op_dtype, device=dev), "item-operator build"
+        )
+        fep = own_band(build_fast_edge_partition(
+            split, mesh, item_op, msgs_dtype=mode, heavy_users=config.heavy_users, heavy_dtype=mode
+        ))
+        del item_op
+        to_layout = lambda tree: split_ep_tree(tree, fep)
+        params_l, opt_l = laid_out(to_layout)
+        embed, step = make_fast_edge_fns(
+            cfg, optimizer, mesh, fep, config.batch_size, config.decay, edge_cap
+        )
+        log({"msg": (
+            f"fast edge partition built in {time.perf_counter() - t0:.1f}s: {n_mesh} shards x "
+            f"{fep.rows_per_shard} user rows, B_ii band {fep.item_op.rows.shape[0]} rows, "
+            f"heavy_users={config.heavy_users}"
+        )})
+        return (mesh, fep, step, lambda p: embed(p, fep), lambda tree: merge_ep_view(tree, fep),
+                to_layout, params_l, opt_l)
+    if config.partition == "edge":
+        from ..parallel.edge_partition import (
+            build_edge_partition, make_explicit_fns, pad_params, unpad_params,
+        )
+
+        mesh = make_mesh(n_mesh, axis_sizes=(n_mesh,), axis_names=("model",), device=dev)
+        part = build_edge_partition(graph, mesh)
+        to_layout = lambda tree: pad_params(tree, part)
+        params_l, opt_l = laid_out(to_layout)
+        embed, step = make_explicit_fns(cfg, optimizer, mesh, part, config.batch_size, config.decay)
+        log({"msg": (
+            f"edge partition: {n_mesh} shards x {part.rows_per_shard} rows, max boundary send "
+            f"{part.max_send} rows/peer"
+        )})
+        return (mesh, part, step, lambda p: embed(p, part)[:num_nodes],
+                lambda tree: unpad_params(tree, part), to_layout, params_l, opt_l)
+
+    from ..parallel.sharded_train import (
+        make_sharded_fast_train_step, make_sharded_train_step, propagate_arc_shards,
+        shard_fast_bipartite, shard_graph, shard_params, sharded_fast_embedding, unshard_params,
+    )
+
+    mesh = make_mesh(n_mesh, device=dev)
+    to_layout = lambda tree: shard_params(tree, mesh)
+    params_l, opt_l = laid_out(to_layout)
+    if config.fast_bipartite != "off":
+        fb = build_with_retry(
+            lambda: build_fast_bipartite(
+                graph, dtype=op_dtype, msgs_dtype=mode, heavy_users=config.heavy_users,
+                heavy_dtype=mode, device=dev,
+            ),
+            "fast-bipartite build",
+        )
+        step_graph = own_band(shard_fast_bipartite(fb, mesh, mode, config.heavy_users, mode))
+        del fb
+        step = make_sharded_fast_train_step(
+            cfg, optimizer, mesh, config.batch_size, config.decay, edge_cap
+        )
+        embed = lambda p: sharded_fast_embedding(p, step_graph, cfg.num_layers)
+    else:
+        step_graph = shard_graph(graph, mesh)
+        step = make_sharded_train_step(cfg, optimizer, mesh, config.batch_size, config.decay)
+        prop = functools.partial(propagate_arc_shards, mesh=mesh)
+        embed = lambda p: get_embedding(
+            unshard_params(p, mesh, num_nodes), step_graph, cfg, prop
+        )
+    log({"msg": (
+        f"mesh training: {mesh.shape}, built in {time.perf_counter() - t0:.1f}s "
+        f"(fast_bipartite={config.fast_bipartite}, heavy_users={config.heavy_users})"
+    )})
+    return (mesh, step_graph, step, embed, lambda tree: unshard_params(tree, mesh, num_nodes),
+            to_layout, params_l, opt_l)
 
 
 def _profiler(dev: torch.device):

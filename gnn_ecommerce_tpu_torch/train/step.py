@@ -116,29 +116,16 @@ def make_loss_fn(
     return loss_fn
 
 
-def make_train_fns(
-    cfg: LightGCNConfig,
-    optimizer: Adam,
-    batch_size: int,
-    decay: float,
-    sample_replace: bool = True,
-    embed_fn: Callable | None = None,
-    batch_embed_fn: Callable | None = None,
-):
-    """Build (train_step, run_steps) over :func:`make_loss_fn`'s loss.
+def make_batch_step(loss_fn: Callable, optimizer: Adam):
+    """``on_batch(params, opt_state, graph, users, pos, neg) -> (params,
+    opt_state, metrics)``: the gradient of ``loss_fn`` (:func:`make_loss_fn`'s
+    form) on one given batch and one ``optimizer`` update, in place.
 
-    train_step(params, opt_state, graph, sampler_data, generator)
-        -> (params, opt_state, metrics)        # metrics: 0-d device tensors
-    run_steps(params, opt_state, graph, sampler_data, generator, num_steps)
-        -> (params, opt_state, mean metrics)   # floats; one host sync
+    The metrics are 0-d device tensors: ``loss``, ``bpr_loss``, ``reg_loss``
+    and ``dropped_arcs`` (batch arcs beyond the batched forward's
+    capacity)."""
 
-    The metrics are ``loss``, ``bpr_loss``, ``reg_loss`` and
-    ``dropped_arcs`` (batch arcs beyond the batched forward's capacity).
-    """
-    loss_fn = make_loss_fn(cfg, decay, embed_fn, batch_embed_fn)
-
-    def train_step(params, opt_state, graph, sdata: BprSamplerData, generator):
-        users, pos, neg = sample_batch(generator, sdata, batch_size, replace=sample_replace)
+    def on_batch(params, opt_state, graph, users, pos, neg):
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         with torch.enable_grad():
             loss, (bpr, reg, dropped) = loss_fn(leaves, graph, users, pos, neg)
@@ -152,6 +139,14 @@ def make_train_fns(
         }
         return params, opt_state, metrics
 
+    return on_batch
+
+
+def make_run_steps(train_step: Callable):
+    """``run_steps(params, opt_state, graph, sampler_data, generator,
+    num_steps) -> (params, opt_state, mean metrics)``: ``num_steps`` calls of
+    ``train_step``, the metrics averaged on the device and read once."""
+
     def run_steps(params, opt_state, graph, sdata, generator, num_steps: int):
         total = None
         for _ in range(num_steps):
@@ -162,4 +157,37 @@ def make_train_fns(
         means = (stacked / divisor(num_steps, stacked.device)).tolist()
         return params, opt_state, dict(zip(names, means))
 
-    return train_step, run_steps
+    return run_steps
+
+
+def make_train_fns(
+    cfg: LightGCNConfig,
+    optimizer: Adam,
+    batch_size: int,
+    decay: float,
+    sample_replace: bool = True,
+    embed_fn: Callable | None = None,
+    batch_embed_fn: Callable | None = None,
+    loss_fn: Callable | None = None,
+):
+    """Build (train_step, run_steps) over :func:`make_loss_fn`'s loss (or
+    ``loss_fn``, a loss of the same form, when given).
+
+    train_step(params, opt_state, graph, sampler_data, generator)
+        -> (params, opt_state, metrics)        # metrics: 0-d device tensors
+    run_steps(params, opt_state, graph, sampler_data, generator, num_steps)
+        -> (params, opt_state, mean metrics)   # floats; one host sync
+
+    ``train_step.on_batch`` is :func:`make_batch_step`'s step on a given
+    batch, and ``train_step.loss_fn`` the loss.
+    """
+    if loss_fn is None:
+        loss_fn = make_loss_fn(cfg, decay, embed_fn, batch_embed_fn)
+    on_batch = make_batch_step(loss_fn, optimizer)
+
+    def train_step(params, opt_state, graph, sdata: BprSamplerData, generator):
+        users, pos, neg = sample_batch(generator, sdata, batch_size, replace=sample_replace)
+        return on_batch(params, opt_state, graph, users, pos, neg)
+
+    train_step.on_batch, train_step.loss_fn = on_batch, loss_fn
+    return train_step, make_run_steps(train_step)

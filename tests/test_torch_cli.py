@@ -1,7 +1,7 @@
 """The port's preprocess and train CLIs and its FrameworkConfig, run
 in-process on the CPU against the JAX package's: the edges CSV, the
-prepared artifact, the checkpoints and logs, YAML configs and the refusal
-of every multi-host signal."""
+prepared artifact, the checkpoints and logs, YAML configs, and every
+multi-host signal reaching the bootstrap (a partial world raises)."""
 import json
 import os
 import sys
@@ -176,28 +176,33 @@ def test_config_without_yaml_raises_clearly(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "argv,env",
+    "argv,env,match",
     [
-        (["--num-processes", "2", "--process-id", "0"], {}),
-        (["--process-id", "1"], {}),
-        ([], {"JAX_COORDINATOR_ADDRESS": "h0:9999"}),
-        (["--distributed"], {}),
-        (["--coordinator", "h0:9999"], {}),
-        ([], {"WORLD_SIZE": "2"}),
+        (["--num-processes", "2", "--process-id", "0"], {}, "go together"),
+        (["--process-id", "1"], {}, "go together"),
+        ([], {"JAX_COORDINATOR_ADDRESS": "h0:9999"}, "JAX_COORDINATOR_ADDRESS"),
+        (["--distributed"], {}, "needs a world"),
+        (["--coordinator", "h0:9999"], {}, "go together"),
+        ([], {"WORLD_SIZE": "2"}, "partial torch.distributed environment"),
+        (["--num-processes", "2"], {}, "go together"),
+        ([], {"MASTER_ADDR": "h0", "RANK": "1"}, "partial torch.distributed environment"),
     ],
 )
-def test_train_cli_refuses_every_multi_host_signal(tmp_path, monkeypatch, argv, env):
-    """No multi-host signal may let a host train as a job of its own: the
-    CLI refuses before any ETL or training."""
+def test_train_cli_refuses_every_multi_host_signal(tmp_path, monkeypatch, argv, env, match):
+    """Every multi-host signal reaches the bootstrap, and a partial world
+    raises before any ETL or training: no host trains as a job of its own."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="multi-host training is not ported"):
+    with pytest.raises((ValueError, SystemExit), match=match):
         train_cli.main(["--synthetic", "-e", "1", *TINY, *argv])
     assert not os.path.exists("data") and not os.path.exists("model-checkpoints")
 
 
 def test_train_cli_mesh_raises(tmp_path, monkeypatch):
+    """A mesh larger than the world (here no world: one rank) raises."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="mesh_devices=2"):
+    with pytest.raises(ValueError, match="mesh_devices=2, but the torch.distributed world has 1"):
         train_cli.main(["--synthetic", "-e", "1", "--mesh", "2", *TINY])

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax():
     assert "gnn_ecommerce_tpu_torch.explain.plots" in modules
     for name in (
         "parallel", "parallel.mesh", "parallel.distributed", "parallel.edge_partition_fast",
-        "parallel.sharded_eval", "ops.spmm_sharded", "data.eda", "data.profile", "cli.eda",
+        "parallel.sharded_eval", "parallel.sharded_train", "parallel.edge_partition",
+        "ops.spmm_sharded", "data.eda", "data.profile", "cli.eda",
     ):
         assert f"gnn_ecommerce_tpu_torch.{name}" in modules
     code = (

@@ -250,7 +250,6 @@ def test_embed_matches_jax(worlds, world):
     ranks, ref = worlds[world]
     for r in ranks:
         np.testing.assert_allclose(r["embed"], ref["embed"], rtol=2e-5, atol=2e-6)
-        assert bool(r["train_step_raises"])
 
 
 @pytest.mark.parametrize("world", WORLDS)

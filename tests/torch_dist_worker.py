@@ -97,13 +97,9 @@ def _job_parallel(c, mesh_default):
     cfg = LightGCNConfig(num_nodes=g.num_nodes, embedding_dim=int(c["dim"]), num_layers=int(c["layers"]))
     params = {"embedding": torch.from_numpy(c["params"])}
     sp = split_ep_tree(params, fep)
-    embed, train_step = make_fast_edge_fns(cfg, Adam(1e-2), mesh, fep, 32, 1e-4, 2048)
+    embed, _ = make_fast_edge_fns(cfg, Adam(1e-2), mesh, fep, 32, 1e-4, 2048)
     with torch.no_grad():
         out["embed"] = embed(sp, fep).numpy()
-    try:
-        train_step(sp, None, fep, None, None)
-    except NotImplementedError:
-        out["train_step_raises"] = np.array(True)
     # The pair's VJP, shard by shard.
     x = sp["emb_users"].clone().requires_grad_()
     gi = torch.from_numpy(c["x_i"])
@@ -138,7 +134,165 @@ def _job_parallel(c, mesh_default):
     return out
 
 
-_JOBS = {"spmm": _job_spmm, "parallel": _job_parallel}
+# The training steps of every mesh strategy (tests/test_torch_parallel_train.py).
+EDGE_FAST_MODES = (("float32", 0), ("float32", 16), ("bfloat16", 0), ("bfloat16", 16))
+
+
+def _two_steps(out, key, step, params, opt, graph, c, view):
+    """Two ``on_batch`` steps on the case's fixed batches; each step's
+    metrics, then the unified params and Adam moments (``view``)."""
+    import torch
+
+    for b in range(2):
+        users, pos, neg = (torch.from_numpy(c[f"{k}{b}"]) for k in ("users", "pos", "neg"))
+        _, _, m = step.on_batch(params, opt, graph, users, pos, neg)
+        out[f"{key}_metrics{b}"] = np.array(
+            [float(m[k]) for k in ("loss", "bpr_loss", "reg_loss", "dropped_arcs")]
+        )
+    p, o = view(params), view(opt)
+    out[f"{key}_emb"] = p["embedding"].numpy()
+    out[f"{key}_mu"] = o.exp_avg["embedding"].numpy()
+    out[f"{key}_nu"] = o.exp_avg_sq["embedding"].numpy()
+
+
+def _job_train(c, mesh_default):
+    """Two train steps of the fast edge partition (f32 and bf16, with and
+    without the head), the GSPMD steps (fast and layered) and the explicit
+    edge partition on fixed batches, from one table; ItemBand's backward;
+    the explicit partition's embed."""
+    import torch
+
+    from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig
+    from gnn_ecommerce_tpu_torch.ops.bipartite import build_fast_bipartite, build_item_operator
+    from gnn_ecommerce_tpu_torch.parallel import (
+        build_edge_partition, build_fast_edge_partition, make_explicit_fns, make_fast_edge_fns,
+        make_mesh, make_sharded_fast_train_step, make_sharded_train_step, merge_ep_view,
+        pad_params, place_item_op, shard_fast_bipartite, shard_graph, shard_params, split_ep_tree,
+    )
+    from gnn_ecommerce_tpu_torch.parallel.edge_partition import unpad_params
+    from gnn_ecommerce_tpu_torch.parallel.sharded_train import unshard_params
+    from gnn_ecommerce_tpu_torch.train.step import Adam
+
+    world = mesh_default.size
+    g, split = _graph_split(c)
+    cfg = LightGCNConfig(g.num_nodes, int(c["dim"]), int(c["layers"]))
+    lr, decay, B, cap = float(c["lr"]), float(c["decay"]), int(c["batch"]), int(c["edge_cap"])
+    table = torch.from_numpy(c["params"])
+    out = {}
+    mesh = make_mesh(world, axis_sizes=(world,), axis_names=("model",), device="cpu")
+    ops = {dt: build_item_operator(split, dtype=dt, device="cpu") for dt in (torch.float32, torch.bfloat16)}
+
+    for mode, heavy in EDGE_FAST_MODES:
+        dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+        fep = build_fast_edge_partition(split, mesh, ops[dt], msgs_dtype=mode, heavy_users=heavy,
+                                        heavy_dtype=mode)
+        _, step = make_fast_edge_fns(cfg, Adam(lr), mesh, fep, B, decay, cap)
+        params = split_ep_tree({"embedding": table.clone()}, fep)
+        opt = Adam(lr).init(params)
+        key = f"edge_fast_{mode}_{heavy}"
+        _two_steps(out, key, step, params, opt, fep, c, lambda t: merge_ep_view(t, fep))
+        out[f"{key}_replicated"] = torch.stack(
+            [params["emb_items"], opt.exp_avg["emb_items"], opt.exp_avg_sq["emb_items"]]
+        ).numpy()
+        out[f"{key}_own"] = torch.stack(
+            [params["emb_users"], opt.exp_avg["emb_users"], opt.exp_avg_sq["emb_users"]]
+        ).numpy()
+
+    # ItemBand's backward against the gradient of the whole product.
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        band = place_item_op(ops[dt], mesh)
+        x = torch.from_numpy(c["band_x"]).to(dt).requires_grad_()
+        (gx,) = torch.autograd.grad(band(x), x, torch.from_numpy(c["band_g"]))
+        out[f"band_grad_{name}"] = gx.float().numpy()
+
+    meshes = {"gspmd_1x{}".format(world): make_mesh(world, axis_sizes=(1, world), device="cpu")}
+    if world == 4:
+        meshes["gspmd_2x2"] = make_mesh(world, axis_sizes=(2, 2), device="cpu")
+    fbs = {
+        mode: build_fast_bipartite(g, dtype=dt, msgs_dtype=mode, heavy_users=int(c["heavy"]),
+                                   heavy_dtype=mode, device="cpu")
+        for mode, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    }
+    for name, m in meshes.items():
+        for mode in ("float32", "bfloat16", "off"):
+            if mode == "off":
+                graph = shard_graph(g, m)
+                step = make_sharded_train_step(cfg, Adam(lr), m, B, decay)
+            else:
+                graph = shard_fast_bipartite(fbs[mode], m, mode, int(c["heavy"]), mode)
+                step = make_sharded_fast_train_step(cfg, Adam(lr), m, B, decay, cap)
+            params = shard_params({"embedding": table.clone()}, m)
+            opt = Adam(lr).init(params)
+            key = f"{name}_{mode}"
+            _two_steps(out, key, step, params, opt, graph, c, lambda t: unshard_params(t, m, g.num_nodes))
+            out[f"{key}_band"] = torch.stack(
+                [params["embedding"], opt.exp_avg["embedding"], opt.exp_avg_sq["embedding"]]
+            ).numpy()
+
+    part = build_edge_partition(g, mesh)
+    embed, step = make_explicit_fns(cfg, Adam(lr), mesh, part, B, decay)
+    params = pad_params({"embedding": table.clone()}, part)
+    with torch.no_grad():
+        out["explicit_embed"] = embed(params, part)[: g.num_nodes].numpy()
+    opt = Adam(lr).init(params)
+    _two_steps(out, "explicit", step, params, opt, part, c, lambda t: unpad_params(t, part))
+    return out
+
+
+# train() on a mesh (tests/test_torch_parallel_driver.py): name -> config.
+DRIVER_RUNS = {
+    "edge_fast_f32": dict(partition="edge", fast_bipartite="f32", heavy_users=16),
+    "edge_fast_bf16": dict(partition="edge", fast_bipartite="bf16", heavy_users=16),
+    "edge_plain": dict(partition="edge"),
+    "gspmd_fast_f32": dict(partition="gspmd", fast_bipartite="f32", heavy_users=16),
+    "gspmd_plain": dict(partition="gspmd"),
+}
+PROFILED_RUN = "gspmd_plain"  # its epoch 1 runs under the profiler
+DRIVER_BASE = dict(latent_dim=8, n_layers=2, epochs=2, batch_size=128, batches_per_epoch=4, lr=0.02)
+
+
+def driver_prepared():
+    """The port's prepared splits of a small synthetic corpus (every rank
+    and the test process build the same)."""
+    from gnn_ecommerce_tpu_torch.data.events import EVENT_TYPE_WEIGHTS_V1, events_to_edges
+    from gnn_ecommerce_tpu_torch.data.prepare import prepare_splits, split_edges
+    from gnn_ecommerce_tpu_torch.data.synthetic import synthetic_events
+
+    events = synthetic_events(n_users=200, n_items=50, n_events=4000, seed=13)
+    return prepare_splits(*split_edges(events_to_edges(events, EVENT_TYPE_WEIGHTS_V1), seed=13))
+
+
+def _history(result) -> np.ndarray:
+    return np.array([[h[k] for k in ("loss", "bpr_loss", "reg_loss", "val_precision", "val_recall",
+                                      "dropped_arcs")] for h in result.history])
+
+
+def _job_driver(c, mesh_default):
+    """train() with every mesh branch (checkpoints under the case's
+    ``dir``), and a resume at lr 0 that must not beat the saved BEST."""
+    from gnn_ecommerce_tpu_torch.train.driver import TrainConfig, train
+
+    prepared = driver_prepared()
+    root = str(c["dir"])
+    out = {}
+    for name, kw in DRIVER_RUNS.items():
+        cfg = TrainConfig(**DRIVER_BASE, **kw, mesh_devices=0, checkpoint_dir=os.path.join(root, name),
+                          profile_dir=os.path.join(root, name, "profile") if name == PROFILED_RUN else None)
+        r = train(prepared, cfg, verbose=False, device="cpu")
+        out[f"{name}_history"] = _history(r)
+        out[f"{name}_test"] = np.array([r.best_epoch, r.best_val_recall, r.test_precision, r.test_recall])
+        if name == "edge_fast_f32":
+            import dataclasses
+
+            r2 = train(prepared, dataclasses.replace(cfg, epochs=3, resume=True, lr=0.0),
+                       verbose=False, device="cpu")
+            out["resume_history"] = _history(r2)
+            out["resume_test"] = np.array([r2.best_epoch, r2.best_val_recall, r2.test_precision,
+                                           r2.test_recall])
+    return out
+
+
+_JOBS = {"spmm": _job_spmm, "parallel": _job_parallel, "train": _job_train, "driver": _job_driver}
 
 
 def _rank_main(job, rank, world, store, case, out_dir):
