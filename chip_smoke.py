@@ -149,12 +149,23 @@ Phases, one printed line each (plus detail lines):
               the to_items backward runs), and, one rank at a time, K1
               bf16 at each gloo rank's GSPMD shapes (both directions) and
               its cast at the rank's edge-partition user rows
+ 16 bench     (runs after 12) python -m gnn_ecommerce_tpu_torch.bench in a
+              process of its own at root bench.py's full shapes (1,639,358
+              users x 54,571 items, 10,157,407 edges, dim 80, 4 layers,
+              batch 1024, 25,000 eval users): its one JSON line has root
+              bench.py's keys, finite numbers, the card, K1 bf16 and its
+              cast launched (the process counts from 0) and no roofline
+              share above 100%; its progress and line are printed; then K1
+              bf16 and its cast against their plain versions at its shapes
+              (the [1,639,358, 80] initial user table over its graph's tail
+              plan after the 16,384-user head)
  11 kernels   one JSON line of the port's kernels, with their launches on
               the paths of phases 4-6, 13, 14 and 15 (every rank's), 7, 8,
-              9, 10 and 12 (train, infer and svd apart; each counted from
-              0 just before the path and read just after); K1's rows (and
-              its cast's) also carry each mesh rank's shapes and times
-              (mesh, mesh_train; K1's mesh_train_world1: the world of 1)
+              9, 10, 12 (train, infer and svd apart) and 16 (each counted
+              from 0 just before the path and read just after); K1's rows
+              (and its cast's) also carry each mesh rank's shapes and times
+              (mesh, mesh_train; K1's mesh_train_world1: the world of 1),
+              and K1 bf16's and the cast's the cli and bench shapes
 The last line is {"ok": true, "device": {...}}. Any failed check raises.
 Without CUDA, or without the repository around this file, it exits non-zero
 and prints no result.
@@ -183,6 +194,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from gnn_ecommerce_tpu_torch import bench
 from gnn_ecommerce_tpu_torch.cli import eda as eda_cli
 from gnn_ecommerce_tpu_torch.cli import infer as infer_cli
 from gnn_ecommerce_tpu_torch.cli import preprocess as preprocess_cli
@@ -381,6 +393,13 @@ MESH_GRAD_REL = {"float32": 1e-5, "bfloat16": 2e-3}
 MESH_CLI_RECALL_TOL = 0.01
 # Phase 12's EDA step: the report's sections.
 EDA_SECTIONS = ("overview", "headline", "variables", "missing", "correlations", "sample")
+# Phase 16 (bench): the benchmark's process must end within BENCH_TIMEOUT_S;
+# its line carries root bench.py's keys under "detail".
+BENCH_TIMEOUT_S = 600
+BENCH_DETAIL_KEYS = (
+    "b_ii_build_s", "fast_forward_ms", "layered_forward_ms", "train_step_ms", "eval_s",
+    "heldout_recall_at_20", "projected_train_hours", "graph", "roofline",
+)
 
 
 def phase(n: int, name: str, t0: float, detail: str = "") -> None:
@@ -1492,7 +1511,7 @@ def check_cli_kernels(work: str, dev: torch.device) -> dict:
         prepared.edge_user, prepared.edge_item_node, prepared.edge_weight,
         prepared.n_users, prepared.n_items, items_offset=True, device="cpu",
     )
-    plan = build_fast_ops(split_graph(graph), "bfloat16", HEAVY_USERS, "bfloat16", dev).items_plan
+    plan = build_fast_ops(split_graph(graph), "bfloat16", HEAVY_USERS, "bfloat16", device=dev).items_plan
     leaves, _ = load_checkpoint(os.path.join(work, "model-checkpoints"), BEST_NAME)
     E_u = torch.as_tensor(leaves[0][: prepared.n_users], dtype=torch.float32).to(dev)
     print(f"  cli shapes: [{prepared.n_users}, {E_u.shape[1]}] trained user table", flush=True)
@@ -2057,7 +2076,7 @@ def edge_train_steps(split, cfg, mesh, item_op, mode: str, heavy: int, table, ba
 def gspmd_train_steps(fb16, cfg, mesh, table, batches, refs, dev) -> tuple[list, object]:
     """The GSPMD fast bf16 step on each fixed batch (``run_mesh_steps``);
     also returns the rank's sharded operators."""
-    sfb = shard_fast_bipartite(fb16, mesh, "bfloat16", HEAVY_USERS, "bfloat16")
+    sfb = shard_fast_bipartite(fb16, mesh, True, "bfloat16", HEAVY_USERS, "bfloat16")
     step = make_sharded_fast_train_step(cfg, Adam(LR), mesh, BATCH, DECAY, EDGE_CAP)
     params = shard_params({"embedding": table}, mesh)
     rows = run_mesh_steps(
@@ -2318,6 +2337,81 @@ def eda_path(work: str) -> str:
     )
 
 
+def finite_numbers(tree, where: str = "") -> None:
+    """Every number in a JSON tree is finite."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            finite_numbers(v, f"{where}.{k}")
+    elif isinstance(tree, list):
+        for n, v in enumerate(tree):
+            finite_numbers(v, f"{where}[{n}]")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        assert np.isfinite(tree), f"bench line: {where} = {tree}"
+
+
+def bench_path(kind: str) -> tuple[dict, dict]:
+    """Phase 16: ``python -m gnn_ecommerce_tpu_torch.bench`` at root
+    bench.py's full shapes in a process of its own (its device memory goes
+    back when it ends). Checks the line's keys, finite numbers, the graph,
+    the card, K1 bf16 and its cast launched on its path and no roofline
+    share above 100%. Returns (the line, its launches per kernels-line
+    row)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    done = subprocess.run(
+        [sys.executable, "-m", "gnn_ecommerce_tpu_torch.bench"], cwd=root,
+        env={**os.environ, "PYTHONPATH": root}, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S,
+    )
+    for line in done.stderr.splitlines():
+        print(f"  bench: {line}", flush=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"the benchmark exited with {done.returncode}")
+    lines = done.stdout.splitlines()
+    assert len(lines) == 1, f"the benchmark printed {len(lines)} lines"
+    r = json.loads(lines[0])
+    print(f"  bench line: {lines[0]}", flush=True)
+    assert {"metric", "value", "unit", "vs_baseline", "detail"} <= set(r), sorted(r)
+    d = r["detail"]
+    missing = [k for k in BENCH_DETAIL_KEYS if k not in d]
+    assert not missing, missing
+    finite_numbers(r)
+    want = f"{bench.N_USERS}x{bench.N_ITEMS}, {bench.N_EDGES} edges, dim {bench.DIM}, {bench.LAYERS} layers"
+    assert d["graph"] == want, d["graph"]
+    assert r["device"]["name"] == kind and r["device"]["power_limit"], r["device"]
+    rl = d["roofline"]
+    shares = {name: ph["pct_of_floor"] for name, ph in rl["phases"].items()}
+    shares.update(forward=rl["forward"]["pct_of_floor"], train_step=rl["train_step"]["pct_of_floor"])
+    over = {k: v for k, v in shares.items() if not 0.0 < v <= 100.0}
+    assert not over, f"roofline shares outside (0, 100]: {over}"
+    launches = {name: r["launches"].get(f"{k.STEM}.{mode}", 0) for name, (k, mode) in KERNELS.items()}
+    launches[TO_USERS] = 0
+    for name in ("segreduce_bf16", "segreduce_cast_bf16"):
+        assert launches[name] >= 1, f"the benchmark did not launch {name}"
+    return r, launches
+
+
+def check_bench_kernels(dev: torch.device) -> dict:
+    """K1 bf16 and its cast against their plain versions at the benchmark's
+    shapes: its initial [1,639,358, 80] user table (seed 0) over the tail
+    plan of its graph (16,384-user bf16 head). Returns each check's
+    kernels-line row by name."""
+    graph, _, _ = bench.build_synthetic_graph(device="cpu")
+    cfg = LightGCNConfig(graph.num_nodes, bench.DIM, bench.LAYERS)
+    plan = build_fast_ops(
+        split_graph(graph), "bfloat16", bench.HEAVY_USERS, "bfloat16", device=dev
+    ).items_plan
+    del graph
+    E_u = init_params(torch.Generator().manual_seed(0), cfg, device=dev)["embedding"][: bench.N_USERS]
+    print(f"  bench shapes: [{E_u.shape[0]}, {E_u.shape[1]}] user table, {plan.src.numel()} tail arcs",
+          flush=True)
+    with torch.no_grad():
+        cast = check_cast(E_u)
+        k1 = check_kernel("segreduce_bf16", bf16_rows(E_u), plan)
+    del E_u, plan
+    torch.cuda.empty_cache()
+    return {row["name"]: row for row in (cast, k1)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the corpus and weights")
@@ -2377,7 +2471,7 @@ def main(argv=None) -> int:
         rows = [check_kernel("segreduce_f32", E_u, full_plan)]
         del full_plan
         check_kernel_cases(dev, args.seed)
-        _, w_hi, t_src, t_dst, t_w, *_ = split_heavy_users(split, HEAVY_USERS, "bfloat16", dev)
+        _, w_hi, t_src, t_dst, t_w, *_ = split_heavy_users(split, HEAVY_USERS, "bfloat16", device=dev)
         del w_hi
         tail_plan = build_segreduce_plan(t_src, t_dst, t_w, split.n_items, device=dev)
         # The main path's bf16 table: gather_segreduce's cast into 16-byte rows.
@@ -2423,7 +2517,7 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         fb16 = build_fast_bipartite(
-            graph_host, dtype=torch.bfloat16, msgs_dtype="bfloat16",
+            graph_host, dtype=torch.bfloat16, fast_ops=True, msgs_dtype="bfloat16",
             heavy_users=HEAVY_USERS, heavy_dtype="bfloat16", device=dev,
         )
         emb16 = fast_get_embedding(params, fb16, LAYERS, alpha=cfg.alphas())
@@ -2708,6 +2802,33 @@ def main(argv=None) -> int:
         f"{k1_cli['ms']:.4f} plain_ms {k1_cli['plain_ms']:.4f}, its cast exact; {mesh_cli_detail}; "
         f"{eda_detail}; "
         f"{infer_detail}; {svd_detail}",
+    )
+
+    # The benchmark entry point at root bench.py's shapes, in its own
+    # process (its launches counted there from 0), then K1 bf16 and its
+    # cast at its shapes, outside the counts.
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    line, path_launches["bench"] = bench_path(kind)
+    t_bench = time.perf_counter() - t0
+    bench_rows = check_bench_kernels(dev)
+    for row in rows:
+        if row["name"] in bench_rows:
+            row["bench"] = {key: bench_rows[row["name"]][key] for key in CLI_ROW_KEYS}
+    d = line["detail"]
+    rl = d["roofline"]
+    phase(
+        16, "bench", t0,
+        f"process {t_bench:.1f} s; value {line['value']:.6e} edges/s vs_baseline "
+        f"{line['vs_baseline']:.4f}; fast path {d['fast_path']} (forward ms {d['forward_ms']}); "
+        f"layered_forward_ms {d['layered_forward_ms']:.3f} train_step_ms {d['train_step_ms']:.3f} "
+        f"eval_s {d['eval_s']:.3f} b_ii_build_s {d['b_ii_build_s']:.2f} R@20 "
+        f"{d['heldout_recall_at_20']:.5f} projected_train_hours {d['projected_train_hours']:.4f}; "
+        f"forward {rl['forward']['pct_of_floor']:.1f}% of floor, train step "
+        f"{rl['train_step']['pct_of_floor']:.1f}%; launches "
+        f"{ {k: v for k, v in path_launches['bench'].items() if v} }; at these shapes K1 bf16 "
+        f"max_abs_err {bench_rows['segreduce_bf16']['max_abs_err']:.3e} kernel_ms "
+        f"{bench_rows['segreduce_bf16']['ms']:.4f}, its cast exact",
     )
 
     t0 = time.perf_counter()

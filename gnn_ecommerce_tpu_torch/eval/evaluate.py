@@ -36,10 +36,14 @@ class EvalBatch:
     user_ids: torch.Tensor  # [Nu] int64
     truth: torch.Tensor  # [Nu, T] local item ids, -1 padded
     mask: torch.Tensor  # [Nu, M] train-purchased local item ids, -1 padded
+    # The real users: the first num_users rows (None: every row). Rows past
+    # it are padding that never reaches the means, as in the JAX package.
+    num_users: int | None = None
 
-    @property
-    def num_users(self) -> int:
-        return int(self.user_ids.shape[0])
+    def __post_init__(self):
+        rows = int(self.user_ids.shape[0])
+        n = rows if self.num_users is None else min(int(self.num_users), rows)
+        object.__setattr__(self, "num_users", n)
 
 
 def _pad_csr(indptr: np.ndarray, values: np.ndarray, width: int) -> np.ndarray:
@@ -112,7 +116,7 @@ def evaluate(
     item_emb = final_emb[n_users:]
     idx_parts, rec_parts, prec_parts = [], [], []
     for lo in range(0, batch.num_users, user_tile):
-        hi = lo + user_tile
+        hi = min(lo + user_tile, batch.num_users)
         _, idx = topk_scores(
             final_emb.index_select(0, batch.user_ids[lo:hi]), item_emb,
             batch.mask[lo:hi], k, item_tile, mask_mode, topk_impl,

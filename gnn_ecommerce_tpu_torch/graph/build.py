@@ -2,7 +2,8 @@
 
 Counterpart of ``gnn_ecommerce_tpu/graph/build.py``: host numpy builds the
 normalized bidirectional arc list, sorted by destination (a CSR over
-destinations); the tensors go to the requested device at the end.
+destinations, ``indptr``); the tensors go to the requested device at the
+end, or stay on the host (``to_device=False``).
 
 Node ids: users occupy ``[0, n_users)``, items ``[n_users, n_users +
 n_items)``. Because arcs are sorted by ``dst``, item→user arcs (``dst <
@@ -26,6 +27,9 @@ class BipartiteGraph:
     src: torch.Tensor     # [2E] int32, message source node ids
     dst: torch.Tensor     # [2E] int32, message destination node ids (sorted)
     w_norm: torch.Tensor  # [2E] float32, D^-1/2 A D^-1/2 edge coefficients
+    w_raw: torch.Tensor   # [2E] float32, unnormalized edge weights
+    indptr: torch.Tensor  # [N+1] int32, CSR row pointers over dst
+    deg: torch.Tensor     # [N] float32, weighted degree per node
     n_users: int
     n_items: int
 
@@ -65,13 +69,16 @@ def build_graph(
     n_items: int,
     *,
     items_offset: bool = False,
+    to_device: bool = True,
     device: str | torch.device = "cuda",
 ) -> BipartiteGraph:
     """Build a normalized bidirectional bipartite graph from (user, item, w).
 
     ``items_offset`` marks ``item_idx`` as already shifted by ``+n_users``.
+    The tensors go to ``device``, or with ``to_device=False`` stay on the
+    host (CPU tensors over the numpy arrays, whatever ``device`` says).
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if to_device else torch.device("cpu")
     user_idx = np.asarray(user_idx, dtype=np.int64)
     item_idx = np.asarray(item_idx, dtype=np.int64)
     weight = np.asarray(weight, dtype=np.float64)
@@ -87,14 +94,17 @@ def build_graph(
     src = np.concatenate([user_idx, item_idx])
     dst = np.concatenate([item_idx, user_idx])
     w = np.concatenate([weight, weight])
-    w_norm, _ = symmetric_normalize(src, dst, w, num_nodes)
+    w_norm, deg = symmetric_normalize(src, dst, w, num_nodes)
     # Stable counting sort keeps the arc order within a row, as the JAX
     # build does, so segment sums are deterministic across rebuilds.
-    order, _ = coo_sort_by_dst(dst, num_nodes)
+    order, indptr = coo_sort_by_dst(dst, num_nodes)
     arrays = dict(
         src=src[order].astype(np.int32),
         dst=dst[order].astype(np.int32),
         w_norm=w_norm[order],
+        w_raw=w[order].astype(np.float32),
+        indptr=indptr.astype(np.int32),
+        deg=deg,
     )
     return BipartiteGraph(
         n_users=int(n_users),

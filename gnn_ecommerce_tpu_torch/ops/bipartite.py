@@ -8,25 +8,30 @@ alternates sides of the bipartite graph, so every item layer l ≥ 2 is
     out_u = α_0 E_u + Â_ui · S_i,     S_i = Σ_{l=1..L} α_l i^{l-1}
     out_i = Σ_l α_l i^l,              i^1 = Â_iu · E_u
 
-A forward is then two sparse products (``fast_to_items`` through the CUDA
-segment reduce, ``fast_to_users`` through the ELL) plus dense B_ii matmuls.
-An optional dense head of the heaviest users (``w_hi``) takes their arcs out
-of both sparse plans.
+A forward is then two sparse products plus dense B_ii matmuls. With plans
+(``FastOps``) they are ``fast_to_items`` through the CUDA segment reduce and
+``fast_to_users`` through the ELL, and an optional dense head of the
+heaviest users (``w_hi``) takes their arcs out of both plans. Without plans
+(``FastBipartite.fops`` None, ``build_fast_bipartite``'s default) they are
+the sorted segment sums :func:`to_items` / :func:`to_users`.
 
 The backward is symmetric: ``(Â_iu)ᵀ = Â_ui`` and ``B_iiᵀ = B_ii``, so the
 gradient of ``fast_to_items`` is ``fast_to_users`` and the other way round
-(``_FastToItems``/``_FastToUsers``), and the B_ii matmuls carry their own
+(``_FastToItems``/``_FastToUsers``; ``to_items``/``to_users`` likewise,
+``_SegPair``), and the B_ii matmuls carry their own
 gradients (``device.mm_f32``). A training step reads the final embedding
 only at its batch: :func:`fast_batch_embeddings` replaces the full
 ``fast_to_users`` by the batch users' own arcs.
 
 The graph arrays stay on the host (numpy) in :class:`BipartiteSplit`; the
-plans and operators built from them live on the device.
+plans, the per-direction arc CSRs (:class:`ArcCsr`) and the operators built
+from them live on the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 import time
 
 import numpy as np
@@ -46,9 +51,6 @@ from .spmm_fast import (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# Rows of B_ii per heavy-user matmul: bounds the product's f32 temp
-# (8192 x 54,571 x 4 B = 1.8 GB at full scale).
-_BAND_ROWS = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +91,67 @@ def split_graph(graph: BipartiteGraph) -> BipartiteSplit:
         n_users=n_users,
         n_items=graph.n_items,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ArcCsr:
+    """One direction's arcs on the device, a CSR over their destinations:
+    destination ``d``'s arcs are ``src[indptr[d]:indptr[d+1]]`` with weights
+    ``w[...]``, in the split's (dst-sorted) order."""
+
+    indptr: torch.Tensor  # [n_out+1] int64
+    src: torch.Tensor  # [E] int64 source ids (local item ids or user ids)
+    w: torch.Tensor  # [E] float32 normalized weights
+
+
+def arc_csr(split: BipartiteSplit, out: str, device: str | torch.device = "cuda") -> ArcCsr:
+    """The arcs into ``out`` ("users": items → users, a CSR over users;
+    "items": users → items, a CSR over items) on ``device``."""
+    dev = resolve_device(device)
+    if out == "users":
+        indptr, src, w = split.iu_indptr, split.iu_src_item, split.iu_w
+    else:
+        indptr = np.searchsorted(split.ui_dst_item, np.arange(split.n_items + 1, dtype=np.int64))
+        src, w = split.ui_src_user, split.ui_w
+    put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+    return ArcCsr(put(indptr, np.int64), put(src, np.int64), put(w, np.float32))
+
+
+def _seg_spmm(x: torch.Tensor, csr: ArcCsr) -> torch.Tensor:
+    """f32 messages ``x[src]·w`` summed into their sorted destinations by
+    ``torch.segment_reduce``, which adds each destination's arcs in order
+    (no atomics: the same bytes every call, on the card too)."""
+    msgs = x.index_select(0, csr.src).float() * csr.w[:, None]
+    return torch.segment_reduce(msgs, "sum", offsets=csr.indptr, unsafe=True)
+
+
+class _SegPair(torch.autograd.Function):
+    """Forward over ``fwd``'s arcs; backward over ``bwd``'s, the transpose
+    (``(Â_ui)ᵀ = Â_iu``), as the JAX pair's custom VJPs are."""
+
+    @staticmethod
+    def forward(ctx, x, fwd: ArcCsr, bwd: ArcCsr):
+        ctx.bwd, ctx.dtype = bwd, x.dtype
+        return _seg_spmm(x, fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seg_spmm(g, ctx.bwd).to(ctx.dtype), None, None
+
+
+def to_users(x_items: torch.Tensor, split: BipartiteSplit) -> torch.Tensor:
+    """out_users = Â_ui · x_items [n_users, D] f32 (one sorted segment sum;
+    the split's arcs go to ``x_items``' device on each call). Its gradient
+    is :func:`to_items`."""
+    dev = x_items.device
+    return _SegPair.apply(x_items, arc_csr(split, "users", dev), arc_csr(split, "items", dev))
+
+
+def to_items(x_users: torch.Tensor, split: BipartiteSplit) -> torch.Tensor:
+    """out_items = Â_iu · x_users [n_items, D] f32; its gradient is
+    :func:`to_users`."""
+    dev = x_users.device
+    return _SegPair.apply(x_users, arc_csr(split, "items", dev), arc_csr(split, "users", dev))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,26 +219,30 @@ def split_heavy_users(
     split: BipartiteSplit,
     heavy_users: int,
     heavy_dtype: str,
+    build_head: bool = True,
     device: str | torch.device = "cuda",
 ) -> tuple:
     """Extract the dense heavy-user head and return the sparse TAIL arcs.
 
     Returns ``(hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src,
-    iu_w)``: ``hi_ids``/``w_hi`` are None without a head; the arc arrays are
-    the tail of :func:`heavy_tail`. ``w_hi`` [n_items, K] is filled on the
-    device from the head's COO.
+    iu_w, head_coo)``: ``hi_ids``/``w_hi``/``head_coo`` are None without a
+    head; the arc arrays are the tail of :func:`heavy_tail`, and
+    ``head_coo`` its deduplicated host COO. ``w_hi`` [n_items, K] is filled
+    on the device from that COO; ``build_head=False`` leaves it None (for a
+    caller that shares an existing head) and returns the rest unchanged.
     """
     dev = resolve_device(device)
     hi, head_coo, *tail = heavy_tail(split, heavy_users)
     hi_ids = w_hi = None
     if hi is not None:
-        uniq, w_sum = head_coo
-        dt = _DTYPES[heavy_dtype]
-        w_hi = torch.zeros(split.n_items * len(hi), dtype=dt, device=dev)
-        w_hi[torch.from_numpy(uniq).to(dev)] = torch.from_numpy(w_sum).to(dev).to(dt)
-        w_hi = w_hi.view(split.n_items, len(hi))
+        if build_head:
+            uniq, w_sum = head_coo
+            dt = _DTYPES[heavy_dtype]
+            w_hi = torch.zeros(split.n_items * len(hi), dtype=dt, device=dev)
+            w_hi[torch.from_numpy(uniq).to(dev)] = torch.from_numpy(w_sum).to(dev).to(dt)
+            w_hi = w_hi.view(split.n_items, len(hi))
         hi_ids = torch.from_numpy(hi.astype(np.int32)).to(dev)
-    return (hi_ids, w_hi, *tail)
+    return (hi_ids, w_hi, *tail, head_coo)
 
 
 def build_fast_ops(
@@ -183,11 +250,19 @@ def build_fast_ops(
     msgs_dtype: str = "float32",
     heavy_users: int = 0,
     heavy_dtype: str = "float32",
+    src_buckets: int = 0,
     device: str | torch.device = "cuda",
 ) -> FastOps:
+    """The plans of both sparse directions and the optional heavy-user head
+    on ``device``. ``src_buckets > 0`` (the JAX package's src-bucketed
+    to_items plan, measured and rejected on the TPU) raises."""
+    if src_buckets > 0:
+        raise NotImplementedError(
+            "build_fast_ops(src_buckets > 0): the src-bucketed plan is not ported"
+        )
     dev = resolve_device(device)
-    hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src, iu_w = split_heavy_users(
-        split, heavy_users, heavy_dtype, dev
+    hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src, iu_w, _ = split_heavy_users(
+        split, heavy_users, heavy_dtype, device=dev
     )
     return FastOps(
         items_plan=build_segreduce_plan(ui_src, ui_dst, ui_w, split.n_items, device=dev),
@@ -268,6 +343,9 @@ def build_item_operator(
     dtype: torch.dtype = torch.float32,
     ell_width: int = 8,
     heavy_chunk: int = 512,
+    scatter_chunk: int = 8_000_000,
+    band_bytes: float = 2.5e9,
+    verbose: bool = False,
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """Dense B_ii = Â_iu · Â_ui [n_items, n_items] on the device.
@@ -275,14 +353,30 @@ def build_item_operator(
     B_ii[a, b] = Σ_u Â_iu[a, u] · Â_ui[u, b], a sum of per-user outer
     products. Users of degree ≤ ``ell_width`` are aggregated on the host into
     a deduplicated (a, b, v) COO (``native.pair_aggregate``) and scattered
-    once; heavier users are densified ``heavy_chunk`` at a time into M
-    [I, C] and add ``M @ Mᵀ`` band by band (``_BAND_ROWS`` rows, so the
-    product's temp stays small). Accumulation is f32 throughout, with one
-    cast to ``dtype`` at the end. The JAX build's int32 band split and tile
-    padding are TPU constraints and are dropped.
+    ``scatter_chunk`` pairs at a time (each element once, so the chunking
+    leaves the bytes alone); heavier users are densified ``heavy_chunk`` at a
+    time into M [I, C] and add ``M @ Mᵀ`` band by band, each band's f32
+    product at most ``band_bytes``. Accumulation is f32 throughout, with one
+    cast to ``dtype`` at the end. ``verbose`` prints each phase's seconds to
+    stderr. The JAX build's int32 band split and tile padding are TPU
+    constraints and are dropped: the f32 accumulator here is the whole
+    [I, I], and ``band_bytes`` bounds the matmul temporaries.
     """
     dev = resolve_device(device)
     n_items = split.n_items
+    band_rows = max(1, int(band_bytes // (4 * n_items))) if n_items else 1
+    t_start = last = time.perf_counter()
+
+    def phase(name: str) -> None:
+        nonlocal last
+        if verbose:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            print(f"  b_ii phase {name}: +{now - last:.1f}s (total {now - t_start:.1f}s)",
+                  file=sys.stderr, flush=True)
+            last = now
+
     order = np.argsort(split.ui_src_user, kind="stable")
     ui_user = split.ui_src_user[order]
     ui_item = split.ui_dst_item[order]
@@ -291,14 +385,18 @@ def build_item_operator(
     counts = np.diff(np.append(first, len(ui_user)))
     user_indptr = np.append(first, len(ui_user))
 
+    phase("host csr")
     B = torch.zeros(n_items, n_items, dtype=torch.float32, device=dev)
     coo_a, coo_b, coo_v = native.pair_aggregate(
         user_indptr, ui_item, ui_w, n_items, ell_width
     )
-    if len(coo_a):
-        flat = torch.from_numpy(coo_a * n_items + coo_b).to(dev)
-        B.view(-1).index_add_(0, flat, torch.from_numpy(coo_v.astype(np.float32)).to(dev))
+    phase(f"pair_aggregate ({len(coo_a)} pairs)")
+    for s in range(0, len(coo_a), max(1, int(scatter_chunk))):
+        sl = slice(s, s + int(scatter_chunk))
+        flat = torch.from_numpy(coo_a[sl] * n_items + coo_b[sl]).to(dev)
+        B.view(-1).index_add_(0, flat, torch.from_numpy(coo_v[sl].astype(np.float32)).to(dev))
     del coo_a, coo_b, coo_v
+    phase("scatter")
 
     heavy = counts > ell_width
     h_first, h_counts = first[heavy], counts[heavy]
@@ -320,33 +418,38 @@ def build_item_operator(
             M.index_add_(0, h_flat[lo:hi], h_vals[lo:hi])
             M = M.view(n_items, heavy_chunk).to(mm_dtype)
             Mt = M.T
-            for a0 in range(0, n_items, _BAND_ROWS):
-                B[a0 : a0 + _BAND_ROWS] += mm_f32(M[a0 : a0 + _BAND_ROWS], Mt)
+            for a0 in range(0, n_items, band_rows):
+                B[a0 : a0 + band_rows] += mm_f32(M[a0 : a0 + band_rows], Mt)
             del M, Mt
+        phase(f"heavy matmuls ({len(h_first)} users)")
     return B if dtype == torch.float32 else B.to(dtype)
-
-
-@dataclasses.dataclass(frozen=True)
-class UserCsr:
-    """The items → users arcs of every user on the device, a CSR over users
-    (``split.iu_*``): what :func:`fast_batch_embeddings` gathers per batch."""
-
-    indptr: torch.Tensor  # [n_users+1] int64
-    item: torch.Tensor  # [E] int64 local item ids
-    w: torch.Tensor  # [E] float32 normalized weights
 
 
 @dataclasses.dataclass(frozen=True)
 class FastBipartite:
     """Everything the fast forward needs: the host split, the dense 2-hop
-    operator, the sparse plans and the per-user CSR for batch forwards.
-    ``build_seconds`` records the build's phases (``item_op``, ``plans``)."""
+    operator, and for the sparse products either the plans (``fops``) or,
+    with ``fops=None``, the users → items arcs as a CSR over items
+    (``item_csr``: :func:`to_items` / :func:`to_users`). ``user_csr``, the
+    items → users arcs as a CSR over users, serves batch forwards on either
+    path. Each CSR left None is built from ``split`` on ``item_op``'s device,
+    so ``FastBipartite(split, item_op)`` is the JAX package's plan-less form.
+    ``build_seconds`` records :func:`build_fast_bipartite`'s phases
+    (``item_op``, ``plans``: the plans or the CSRs)."""
 
     split: BipartiteSplit
     item_op: torch.Tensor  # [I, I] B_ii (f32 or bf16)
-    fops: FastOps
-    user_csr: UserCsr
+    fops: FastOps | None = None
+    user_csr: ArcCsr | None = None
+    item_csr: ArcCsr | None = None
     build_seconds: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        dev = self.item_op.device
+        if self.user_csr is None:
+            object.__setattr__(self, "user_csr", arc_csr(self.split, "users", dev))
+        if self.fops is None and self.item_csr is None:
+            object.__setattr__(self, "item_csr", arc_csr(self.split, "items", dev))
 
     @property
     def n_users(self) -> int:
@@ -357,32 +460,47 @@ class FastBipartite:
         return self.split.n_items
 
     def to_items(self, x_users: torch.Tensor) -> torch.Tensor:
+        if self.fops is None:
+            return _SegPair.apply(x_users, self.item_csr, self.user_csr)
         return fast_to_items(x_users, self.fops)
 
     def to_users(self, x_items: torch.Tensor) -> torch.Tensor:
+        if self.fops is None:
+            return _SegPair.apply(x_items, self.user_csr, self.item_csr)
         return fast_to_users(x_items, self.fops)
 
 
 def build_fast_bipartite(
     graph: BipartiteGraph,
     dtype: torch.dtype = torch.float32,
+    fast_ops: bool = False,
     msgs_dtype: str = "float32",
     heavy_users: int = 0,
     heavy_dtype: str = "float32",
+    src_buckets: int = 0,
+    band_bytes: float | None = None,
     device: str | torch.device = "cuda",
 ) -> FastBipartite:
-    """Split the graph and build B_ii and the plans on ``device``."""
+    """Split the graph and build B_ii on ``device``, and the plans when
+    ``fast_ops`` (else the plan-less segment-sum path: ``msgs_dtype`` and
+    the heavy head are then not used, as in the JAX package).
+    ``band_bytes=None`` bounds B_ii's f32 matmul bands at 1.5 GB when a
+    heavy head is resident, else 2.5 GB; ``src_buckets > 0`` raises
+    (:func:`build_fast_ops`)."""
+    if src_buckets > 0:
+        raise NotImplementedError(
+            "build_fast_bipartite(src_buckets > 0): the src-bucketed plan is not ported"
+        )
     dev = resolve_device(device)
+    if band_bytes is None:
+        band_bytes = 1.5e9 if (fast_ops and heavy_users > 0) else 2.5e9
     split = split_graph(graph)
     t0 = time.perf_counter()
-    fops = build_fast_ops(split, msgs_dtype, heavy_users, heavy_dtype, dev)
-    user_csr = UserCsr(
-        indptr=torch.from_numpy(split.iu_indptr.astype(np.int64)).to(dev),
-        item=torch.from_numpy(split.iu_src_item.astype(np.int64)).to(dev),
-        w=torch.from_numpy(split.iu_w.astype(np.float32)).to(dev),
-    )
+    fops = build_fast_ops(split, msgs_dtype, heavy_users, heavy_dtype, device=dev) if fast_ops else None
+    user_csr = arc_csr(split, "users", dev)
+    item_csr = None if fast_ops else arc_csr(split, "items", dev)
     t1 = time.perf_counter()
-    item_op = build_item_operator(split, dtype=dtype, device=dev)
+    item_op = build_item_operator(split, dtype=dtype, band_bytes=band_bytes, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
@@ -391,6 +509,7 @@ def build_fast_bipartite(
         item_op=item_op,
         fops=fops,
         user_csr=user_csr,
+        item_csr=item_csr,
         build_seconds={"plans": t1 - t0, "item_op": t2 - t1},
     )
 
@@ -438,13 +557,15 @@ def _item_chain(params: dict, fb: FastBipartite, num_layers: int, alpha):
 
 
 def fast_get_embedding(
-    params: dict, fb: FastBipartite, num_layers: int, alpha=None
+    params: dict, fb: FastBipartite, num_layers: int, alpha=None, to_users_fn=None
 ) -> torch.Tensor:
     """Alpha-weighted LightGCN embedding via the 2-SpMM factorization: an
     exact restructure of the layered ``get_embedding``. Returns the unified
-    [n_users + n_items, D] final embedding in the table's dtype."""
+    [n_users + n_items, D] final embedding in the table's dtype.
+    ``to_users_fn(S_i)`` replaces ``fb``'s to_users."""
     E_u, out_i, S_i, alpha = _item_chain(params, fb, num_layers, alpha)
-    out_u = alpha[0] * E_u.float() + fb.to_users(S_i)
+    users_of = fb.to_users if to_users_fn is None else to_users_fn
+    out_u = alpha[0] * E_u.float() + users_of(S_i)
     return torch.cat([out_u, out_i]).to(params["embedding"].dtype)
 
 
@@ -476,7 +597,7 @@ def fast_batch_embeddings(
     E_u, out_i, S_i, alpha = _item_chain(params, fb, num_layers, alpha)
     csr = fb.user_csr
     start = csr.indptr[users]
-    agg, dropped = batch_messages(start, csr.indptr[users + 1] - start, csr.item, csr.w, S_i, edge_cap)
+    agg, dropped = batch_messages(start, csr.indptr[users + 1] - start, csr.src, csr.w, S_i, edge_cap)
     u_out = alpha[0] * E_u[users].float() + agg
     n_users = fb.n_users
     return u_out, out_i[pos - n_users], out_i[neg - n_users], dropped

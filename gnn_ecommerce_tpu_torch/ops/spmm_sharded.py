@@ -89,8 +89,8 @@ def build_sharded_fast_ops(
     equal share whatever its axes."""
     n_dev, s = mesh.size, mesh.rank
     dev = mesh.device
-    hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src, iu_w = split_heavy_users(
-        split, heavy_users, heavy_dtype, dev
+    hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src, iu_w, _ = split_heavy_users(
+        split, heavy_users, heavy_dtype, device=dev
     )
     lo, hi = np.linspace(0, len(ui_src), n_dev + 1).astype(np.int64)[s : s + 2]
     items_plan = build_segreduce_plan(

@@ -155,11 +155,15 @@ def _lookup(out_local: torch.Tensor, ids: torch.Tensor, part: EdgePartition) -> 
     return sum_partials(vals, part.mesh, AXIS)
 
 
-def pad_params(tree, part: EdgePartition):
+def pad_params(params, part: EdgePartition, mesh: Mesh | None = None):
     """This rank's [R, D] rows of every ``{"embedding": [N, D]}`` node of
-    ``tree`` (params, or an Adam state's moments), the table zero-padded to
-    S·R rows: the GSPMD step's ``model`` bands (``sharded_train.shard_params``)."""
-    return shard_params(tree, part.mesh)
+    ``params`` (the params, or an Adam state's moments), the table
+    zero-padded to S·R rows: the GSPMD step's ``model`` bands
+    (``sharded_train.shard_params``). ``mesh`` must be the part's own
+    (default)."""
+    if mesh is not None and mesh is not part.mesh:
+        raise ValueError("pad_params: mesh is not the mesh the partition was built on")
+    return shard_params(params, part.mesh)
 
 
 def unpad_params(tree, part: EdgePartition):

@@ -277,11 +277,12 @@ class _EpToUsers(torch.autograd.Function):
         return _to_items(g, ctx.fep).to(ctx.dtype), None
 
 
-def ep_to_items(x_users_loc: torch.Tensor, fep: FastEdgePartition) -> torch.Tensor:
+def ep_to_items(x_users: torch.Tensor, fep: FastEdgePartition) -> torch.Tensor:
     """out_items [I, D] f32, the same on every shard, = Â_iu · x_users from
-    each shard's own [R, D] rows: one all-reduce. Its gradient, this
-    shard's rows of the cotangent's ``to_users``, is :func:`ep_to_users`."""
-    return _EpToItems.apply(x_users_loc, fep)
+    each shard's own [R, D] rows ``x_users``: one all-reduce. Its gradient,
+    this shard's rows of the cotangent's ``to_users``, is
+    :func:`ep_to_users`."""
+    return _EpToItems.apply(x_users, fep)
 
 
 def ep_to_users(x_items: torch.Tensor, fep: FastEdgePartition) -> torch.Tensor:
@@ -317,11 +318,14 @@ def _is_split(node) -> bool:
     return isinstance(node, dict) and set(node) == {"emb_users", "emb_items"}
 
 
-def split_ep_tree(tree, fep: FastEdgePartition):
+def split_ep_tree(tree, fep: FastEdgePartition, mesh: Mesh | None = None):
     """Map every ``{"embedding": [N, D]}`` node (params, or an optimizer
     state's moment dicts) to the shard's layout: ``emb_users`` its [R, D]
     user rows (zero past ``n_users``), ``emb_items`` the [I, D] item rows.
-    Other leaves (an optimizer's step) pass through."""
+    Other leaves (an optimizer's step) pass through. ``mesh`` must be the
+    partition's own (default)."""
+    if mesh is not None and mesh is not fep.mesh:
+        raise ValueError("split_ep_tree: mesh is not the mesh the partition was built on")
     s, R, n_users = fep.shard, fep.rows_per_shard, fep.n_users
 
     def one(node):

@@ -22,13 +22,15 @@ from .mesh import Mesh
 
 
 def _my_slice(batch: EvalBatch, n_shards: int, shard: int):
-    """This shard's rows of the batch padded to a multiple of ``n_shards``:
-    (user ids, truth, mask); padded users are user 0 with ``-1`` rows."""
-    pad = (-batch.num_users) % n_shards
-    per = (batch.num_users + pad) // n_shards
-    uids = F.pad(batch.user_ids, (0, pad))
-    truth = F.pad(batch.truth, (0, 0, 0, pad), value=-1)
-    mask = F.pad(batch.mask, (0, 0, 0, pad), value=-1)
+    """This shard's rows of the batch's real users padded to a multiple of
+    ``n_shards``: (user ids, truth, mask); padded users are user 0 with
+    ``-1`` rows."""
+    nu = batch.num_users
+    pad = (-nu) % n_shards
+    per = (nu + pad) // n_shards
+    uids = F.pad(batch.user_ids[:nu], (0, pad))
+    truth = F.pad(batch.truth[:nu], (0, 0, 0, pad), value=-1)
+    mask = F.pad(batch.mask[:nu], (0, 0, 0, pad), value=-1)
     rows = slice(shard * per, (shard + 1) * per)
     return uids[rows], truth[rows], mask[rows]
 

@@ -37,7 +37,7 @@ import torch
 from ..graph.build import BipartiteGraph
 from ..models.lightgcn import get_embedding
 from ..ops.bipartite import (
-    BipartiteSplit, FastBipartite, UserCsr, fast_batch_embeddings, fast_get_embedding,
+    ArcCsr, BipartiteSplit, FastBipartite, fast_batch_embeddings, fast_get_embedding,
 )
 from ..ops.spmm_sharded import ShardedFastOps, build_sharded_fast_ops, sharded_to_items, sharded_to_users
 from ..train.step import make_loss_fn, make_train_fns
@@ -51,9 +51,9 @@ def _band_rows(n_rows: int, mesh: Mesh) -> int:
     return -(-n_rows // mesh.shape["model"])
 
 
-def shard_params(tree, mesh: Mesh):
+def shard_params(params, mesh: Mesh):
     """This rank's ``model`` band of every ``{"embedding": [N, D]}`` node
-    of ``tree`` (params, or an Adam state's moments): rows [m·R, (m+1)·R)
+    of ``params`` (the params, or an Adam state's moments): rows [m·R, (m+1)·R)
     with R = ceil(N / model), zero past N. Other leaves pass through."""
     m = mesh.index("model")
 
@@ -65,7 +65,7 @@ def shard_params(tree, mesh: Mesh):
         band[: rows.shape[0]] = rows
         return {"embedding": band}
 
-    return _map_tree(tree, _is_unified, one)
+    return _map_tree(params, _is_unified, one)
 
 
 def unshard_params(tree, mesh: Mesh, n_rows: int):
@@ -98,6 +98,9 @@ def shard_graph(graph: BipartiteGraph, mesh: Mesh) -> BipartiteGraph:
         src=shard(graph.src, 0),
         dst=shard(graph.dst, graph.num_nodes),
         w_norm=shard(graph.w_norm, 0),
+        w_raw=shard(graph.w_raw, 0),
+        indptr=graph.indptr.to(mesh.device),
+        deg=graph.deg.to(mesh.device),
         n_users=graph.n_users,
         n_items=graph.n_items,
     )
@@ -145,7 +148,7 @@ class ShardedFastBipartite:
     split: BipartiteSplit
     item_op: ItemBand
     fops: ShardedFastOps
-    user_csr: UserCsr
+    user_csr: ArcCsr
     mesh: Mesh
 
     @property
@@ -166,6 +169,7 @@ class ShardedFastBipartite:
 def shard_fast_bipartite(
     fb: FastBipartite,
     mesh: Mesh,
+    fast_ops: bool = False,
     msgs_dtype: str = "float32",
     heavy_users: int = 0,
     heavy_dtype: str = "float32",
@@ -173,9 +177,14 @@ def shard_fast_bipartite(
     """Lay ``fb`` out on ``mesh`` for this rank: B_ii's rows over ``model``
     (a view of them), the fast SpMM plans over every rank
     (``build_sharded_fast_ops``, with the dense heavy head replicated), the
-    per-user CSR replicated. The JAX package's option to leave the plans
-    out (``fast_ops=False``, its segment-sum fallback) has no counterpart:
-    the port's fast path always runs on plans."""
+    per-user CSR replicated. ``fast_ops=False``, the JAX package's default
+    (its GSPMD segment-sum path), raises: the port's sharded fast path
+    always runs on plans, and every caller passes ``fast_ops=True``, as
+    JAX's driver does."""
+    if not fast_ops:
+        raise NotImplementedError(
+            "shard_fast_bipartite(fast_ops=False): the GSPMD segment-sum path is not ported"
+        )
     fops = build_sharded_fast_ops(
         fb.split, mesh, msgs_dtype=msgs_dtype, heavy_users=heavy_users, heavy_dtype=heavy_dtype
     )

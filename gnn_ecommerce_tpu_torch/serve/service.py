@@ -72,6 +72,7 @@ class RecommenderService:
         cfg: LightGCNConfig,
         k: int = 20,
         mask_mode: str = "neginf",
+        warm: bool = True,
         quantized: bool = False,
         device: str | torch.device = "cuda",
     ):
@@ -99,7 +100,7 @@ class RecommenderService:
         # no_grad, not inference_mode: the operators may also carry a
         # gradient (chip_smoke.py differentiates through this FastBipartite).
         with torch.no_grad():
-            self.fast_bipartite = build_fast_bipartite(graph, device=self.device)
+            self.fast_bipartite = build_fast_bipartite(graph, fast_ops=True, device=self.device)
         # Host-side CSR of train purchases per user (LOCAL item space), for
         # request-time exclusion masks.
         s = prepared.sampler
@@ -116,15 +117,17 @@ class RecommenderService:
         self._active: str = "1"
         self._next_version = 2
         self.refresh(params)
-        # Warm every batch size before traffic; warm-up calls do not count
-        # in the serving metrics.
-        t0 = time.perf_counter()
-        for b in self.BATCH_BUCKETS:
-            self.recommend(np.zeros((b,), dtype=np.int64))
-        self.warmup_s = time.perf_counter() - t0
-        with self._lock:
-            self._req_count = self._user_count = 0
-            self._req_seconds = 0.0
+        self.warmup_s = 0.0
+        if warm:
+            # Warm every batch size before traffic; warm-up calls do not
+            # count in the serving metrics.
+            t0 = time.perf_counter()
+            for b in self.BATCH_BUCKETS:
+                self.recommend(np.zeros((b,), dtype=np.int64))
+            self.warmup_s = time.perf_counter() - t0
+            with self._lock:
+                self._req_count = self._user_count = 0
+                self._req_seconds = 0.0
 
     @classmethod
     def from_artifacts(

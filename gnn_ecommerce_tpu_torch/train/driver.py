@@ -422,6 +422,7 @@ def _train_impl(
             lambda: build_fast_bipartite(
                 graph,
                 dtype=torch.bfloat16 if bf16 else torch.float32,
+                fast_ops=True,
                 msgs_dtype=mode,
                 heavy_users=config.heavy_users,
                 heavy_dtype=mode,
@@ -751,13 +752,13 @@ def _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch: 
     params_l, opt_l = laid_out(to_layout)
     if config.fast_bipartite != "off":
         fb = build_with_retry(
-            lambda: build_fast_bipartite(
-                graph, dtype=op_dtype, msgs_dtype=mode, heavy_users=config.heavy_users,
-                heavy_dtype=mode, device=dev,
-            ),
+            lambda: build_fast_bipartite(graph, dtype=op_dtype, device=dev),
             "fast-bipartite build",
         )
-        step_graph = own_band(shard_fast_bipartite(fb, mesh, mode, config.heavy_users, mode))
+        step_graph = own_band(shard_fast_bipartite(
+            fb, mesh, fast_ops=True, msgs_dtype=mode, heavy_users=config.heavy_users,
+            heavy_dtype=mode,
+        ))
         del fb
         step = make_sharded_fast_train_step(
             cfg, optimizer, mesh, config.batch_size, config.decay, edge_cap

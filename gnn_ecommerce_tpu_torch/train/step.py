@@ -24,6 +24,7 @@ import torch
 from ..device import divisor
 from ..models.lightgcn import LightGCNConfig, get_embedding
 from ..models.losses import bpr_loss, reg_loss
+from ..ops.propagate import propagate_segment
 from ..sampling.bpr import BprSamplerData, sample_batch
 
 
@@ -89,18 +90,20 @@ def make_loss_fn(
     decay: float,
     embed_fn: Callable | None = None,
     batch_embed_fn: Callable | None = None,
+    propagate_fn: Callable = propagate_segment,
 ):
     """``loss_fn(params, graph, users, pos, neg) -> (loss, (bpr, reg,
     dropped))``: BPR on the final embeddings plus L2 on the ego embeddings.
 
-    ``embed_fn(params, graph) -> final_embedding`` replaces the layered
-    ``get_embedding`` (e.g. ``ops.bipartite.fast_get_embedding`` with a
+    The final embeddings are the layered ``get_embedding`` with
+    ``propagate_fn`` as each layer. ``embed_fn(params, graph) ->
+    final_embedding`` replaces it (e.g. ``ops.bipartite.fast_get_embedding`` with a
     ``FastBipartite`` as ``graph``). ``batch_embed_fn(params, graph, users,
     pos, neg) -> (u, p, n, dropped)`` replaces both and gives the batch's
     final embeddings directly (``ops.bipartite.fast_batch_embeddings``).
     """
     if embed_fn is None:
-        embed_fn = lambda params, graph: get_embedding(params, graph, cfg)
+        embed_fn = lambda params, graph: get_embedding(params, graph, cfg, propagate_fn)
 
     def loss_fn(params, graph, users, pos, neg):
         if batch_embed_fn is not None:
@@ -165,13 +168,15 @@ def make_train_fns(
     optimizer: Adam,
     batch_size: int,
     decay: float,
+    propagate_fn: Callable = propagate_segment,
     sample_replace: bool = True,
     embed_fn: Callable | None = None,
     batch_embed_fn: Callable | None = None,
     loss_fn: Callable | None = None,
 ):
     """Build (train_step, run_steps) over :func:`make_loss_fn`'s loss (or
-    ``loss_fn``, a loss of the same form, when given).
+    ``loss_fn``, a loss of the same form, when given). ``propagate_fn`` is
+    the layered loss's propagation (``ops.propagate``'s functions).
 
     train_step(params, opt_state, graph, sampler_data, generator)
         -> (params, opt_state, metrics)        # metrics: 0-d device tensors
@@ -182,7 +187,7 @@ def make_train_fns(
     batch, and ``train_step.loss_fn`` the loss.
     """
     if loss_fn is None:
-        loss_fn = make_loss_fn(cfg, decay, embed_fn, batch_embed_fn)
+        loss_fn = make_loss_fn(cfg, decay, embed_fn, batch_embed_fn, propagate_fn)
     on_batch = make_batch_step(loss_fn, optimizer)
 
     def train_step(params, opt_state, graph, sdata: BprSamplerData, generator):

@@ -49,8 +49,11 @@ def test_split_heavy_users_matches_jax(small, heavy, dtype):
     j_hi, j_w = np.asarray(jout[0]), np.asarray(jout[1].astype(jnp.float32))
     np.testing.assert_array_equal(tout[0].numpy(), j_hi)
     np.testing.assert_array_equal(tout[1].float().numpy(), j_w)
-    for t_arr, j_arr in zip(tout[2:], jout[2:8]):
+    assert len(tout) == len(jout)
+    for t_arr, j_arr in zip(tout[2:8], jout[2:8]):
         np.testing.assert_array_equal(np.asarray(t_arr), np.asarray(j_arr))
+    for t_arr, j_arr in zip(tout[8], jout[8]):  # the head's host COO
+        np.testing.assert_array_equal(t_arr, j_arr)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -70,7 +73,7 @@ def test_build_item_operator_matches_jax(small, dtype):
 def test_fast_get_embedding_f32_matches_jax(small, layers, heavy):
     jgraph, tgraph, jsplit, tsplit = small
     jfb = jbip.build_fast_bipartite(jgraph, fast_ops=True, heavy_users=heavy)
-    tfb = tbip.build_fast_bipartite(tgraph, heavy_users=heavy, device="cpu")
+    tfb = tbip.build_fast_bipartite(tgraph, fast_ops=True, heavy_users=heavy, device="cpu")
     jp, tp = _params(jgraph, 12)
     ref = np.asarray(jbip.fast_get_embedding(jp, jfb, layers))
     out = tbip.fast_get_embedding(tp, tfb, layers)
@@ -87,7 +90,7 @@ def test_fast_get_embedding_bf16_matches_jax(small, layers):
         heavy_users=50, heavy_dtype="bfloat16",
     )
     tfb = tbip.build_fast_bipartite(
-        tgraph, dtype=torch.bfloat16, msgs_dtype="bfloat16", heavy_users=50,
+        tgraph, dtype=torch.bfloat16, fast_ops=True, msgs_dtype="bfloat16", heavy_users=50,
         heavy_dtype="bfloat16", device="cpu",
     )
     jp, tp = _params(jgraph, 16, seed=1)
@@ -116,7 +119,7 @@ def test_fast_forward_matches_layered_reference(small, layers):
     _, tgraph, _, _ = small
     cfg = LightGCNConfig(tgraph.num_nodes, 16, layers)
     params = init_params(torch.Generator().manual_seed(7), cfg, device="cpu")
-    tfb = tbip.build_fast_bipartite(tgraph, device="cpu")
+    tfb = tbip.build_fast_bipartite(tgraph, fast_ops=True, device="cpu")
     ref = get_embedding(params, tgraph, cfg)
     out = tbip.fast_get_embedding(params, tfb, layers, alpha=cfg.alphas())
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item())

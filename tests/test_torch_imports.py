@@ -36,7 +36,7 @@ def test_every_module_imports_without_jax():
     for name in (
         "parallel", "parallel.mesh", "parallel.distributed", "parallel.edge_partition_fast",
         "parallel.sharded_eval", "parallel.sharded_train", "parallel.edge_partition",
-        "ops.spmm_sharded", "data.eda", "data.profile", "cli.eda",
+        "ops.spmm_sharded", "data.eda", "data.profile", "cli.eda", "bench",
     ):
         assert f"gnn_ecommerce_tpu_torch.{name}" in modules
     code = (

@@ -141,7 +141,7 @@ def _port_run(c, pg, path: str, mode: str = "float32", heavy: int = HEAVY):
     if path == "fast":
         bf16 = mode == "bfloat16"
         graph = tbip.build_fast_bipartite(
-            pg, dtype=torch.bfloat16 if bf16 else torch.float32, msgs_dtype=mode,
+            pg, dtype=torch.bfloat16 if bf16 else torch.float32, fast_ops=True, msgs_dtype=mode,
             heavy_users=heavy, heavy_dtype=mode, device="cpu",
         )
         loss = make_loss_fn(cfg, DECAY, batch_embed_fn=lambda p, g_, u, po, ne: tbip.fast_batch_embeddings(

@@ -166,7 +166,7 @@ def _fast_pair(jgraph, tgraph, mode, heavy):
     if mode == "f32":
         return (
             jbip.build_fast_bipartite(jgraph, fast_ops=True, heavy_users=heavy),
-            tbip.build_fast_bipartite(tgraph, heavy_users=heavy, device="cpu"),
+            tbip.build_fast_bipartite(tgraph, fast_ops=True, heavy_users=heavy, device="cpu"),
         )
     return (
         jbip.build_fast_bipartite(
@@ -174,7 +174,7 @@ def _fast_pair(jgraph, tgraph, mode, heavy):
             heavy_users=heavy, heavy_dtype="bfloat16",
         ),
         tbip.build_fast_bipartite(
-            tgraph, dtype=torch.bfloat16, msgs_dtype="bfloat16", heavy_users=heavy,
+            tgraph, dtype=torch.bfloat16, fast_ops=True, msgs_dtype="bfloat16", heavy_users=heavy,
             heavy_dtype="bfloat16", device="cpu",
         ),
     )
@@ -226,7 +226,7 @@ def test_fast_pair_vjps_are_transposes(case):
     Â_iu h, with the head on, against the JAX package's plain products."""
     jgraph, tgraph, _, _ = case
     jsplit = jbip.split_graph(jgraph)
-    tfb = tbip.build_fast_bipartite(tgraph, heavy_users=50, device="cpu")
+    tfb = tbip.build_fast_bipartite(tgraph, fast_ops=True, heavy_users=50, device="cpu")
     x, g = normal(2, (jsplit.n_users, 8)), normal(3, (jsplit.n_items, 8))
     xt = _t(x).requires_grad_()
     (tbip.fast_to_items(xt, tfb.fops) * _t(g)).sum().backward()

@@ -209,8 +209,7 @@ def _job_train(c, mesh_default):
     if world == 4:
         meshes["gspmd_2x2"] = make_mesh(world, axis_sizes=(2, 2), device="cpu")
     fbs = {
-        mode: build_fast_bipartite(g, dtype=dt, msgs_dtype=mode, heavy_users=int(c["heavy"]),
-                                   heavy_dtype=mode, device="cpu")
+        mode: build_fast_bipartite(g, dtype=dt, device="cpu")
         for mode, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))
     }
     for name, m in meshes.items():
@@ -219,7 +218,7 @@ def _job_train(c, mesh_default):
                 graph = shard_graph(g, m)
                 step = make_sharded_train_step(cfg, Adam(lr), m, B, decay)
             else:
-                graph = shard_fast_bipartite(fbs[mode], m, mode, int(c["heavy"]), mode)
+                graph = shard_fast_bipartite(fbs[mode], m, True, mode, int(c["heavy"]), mode)
                 step = make_sharded_fast_train_step(cfg, Adam(lr), m, B, decay, cap)
             params = shard_params({"embedding": table.clone()}, m)
             opt = Adam(lr).init(params)
