@@ -25,7 +25,14 @@ Phases, one printed line each (plus detail lines):
               bf16 and padded bf16 tables, and through gather_segreduce on
               expanded, transposed and misaligned f32 tables; the stream
               sum (K3) over K1's bf16 tail messages; kernel, plain and
-              library times and the bound
+              library times and the bound; K1's accumulate mode (out +=
+              Â·x) against segreduce_plain(prev=) on the edge-case plans,
+              a plan with no arc (on 0- and 1-row tables) and a one-row
+              hub, rows with no arc unchanged; the src-bucketed to_items
+              (gather_segreduce_bucketed, 8 and 16 source ranges of the
+              bf16 tail plan: one K1 launch, then one accumulate launch
+              per later bucket) against the unbucketed K1 and its plain
+              version, timed beside the unbucketed K1 and its bound
   4 forward   the RecommenderService (dim 90, 5 layers, f32) propagates once
               through the fast forward; its cache is held against the layered
               get_embedding on the card; forward time and a profiler breakdown
@@ -142,8 +149,15 @@ Phases, one printed line each (plus detail lines):
               f32 step), then in a gloo world of 2 spawned ranks sharing
               the card the fast edge partition's and the GSPMD fast bf16
               steps, the replicated leaves bit-equal on every rank after
-              every step; each step's ms, labelled as ranks sharing one
-              card; then, against their plain versions and outside the
+              every step; in both worlds the GSPMD segment-sum path
+              (shard_fast_bipartite(fb16, mesh), fast_ops=False; in the
+              gloo world on a (data 2, model 1) mesh, each rank summing
+              half of the arcs and one all-reduce adding the halves): its
+              forward against the one-device plan-less forward (phase 4's
+              bound) and three steps against the one-device plan-less step
+              (the bf16 tolerances: B_ii is bf16); each step's ms,
+              labelled as ranks sharing one card; then, against their
+              plain versions and outside the
               counts: K1 f32 and bf16 at the world of 1's plans (both
               directions: its users-side plan is the whole graph's, which
               the to_items backward runs), and, one rank at a time, K1
@@ -155,14 +169,19 @@ Phases, one printed line each (plus detail lines):
               batch 1024, 25,000 eval users): its one JSON line has root
               bench.py's keys, finite numbers, the card, K1 bf16 and its
               cast launched (the process counts from 0) and no roofline
-              share above 100%; its progress and line are printed; then K1
-              bf16 and its cast against their plain versions at its shapes
-              (the [1,639,358, 80] initial user table over its graph's tail
-              plan after the 16,384-user head)
+              share above 100%; forward_ms of the segment, plans and
+              bucketed (8 source ranges) candidates, the fastest named by
+              fast_path, and K1's accumulate launches a multiple of 7 (one
+              launch and seven accumulate launches a bucketed to_items);
+              its progress and line are printed; then K1 bf16, its cast
+              and the 8-bucket K1 against their plain versions at its
+              shapes (the [1,639,358, 80] initial user table over its
+              graph's tail plan after the 16,384-user head)
  11 kernels   one JSON line of the port's kernels, with their launches on
               the paths of phases 4-6, 13, 14 and 15 (every rank's), 7, 8,
               9, 10, 12 (train, infer and svd apart) and 16 (each counted
-              from 0 just before the path and read just after); K1's rows
+              from 0 just before the path and read just after), K1's with
+              its accumulate launches (also counted apart); K1's rows
               (and its cast's) also carry each mesh rank's shapes and times
               (mesh, mesh_train; K1's mesh_train_world1: the world of 1),
               and K1 bf16's and the cast's the cli and bench shapes
@@ -228,6 +247,7 @@ from gnn_ecommerce_tpu_torch.ops._kernels import (
     stream_sum_plain,
 )
 from gnn_ecommerce_tpu_torch.ops.bipartite import (
+    FastBipartite,
     build_fast_bipartite,
     build_fast_ops,
     fast_batch_embeddings,
@@ -241,10 +261,12 @@ from gnn_ecommerce_tpu_torch.ops.spmm_fast import (
     bf16_row_width,
     bf16_rows,
     bf16_rows_plain,
+    build_bucketed_segreduce_plan,
     build_ell_plan,
     build_segreduce_plan,
     ell_apply,
     gather_segreduce,
+    gather_segreduce_bucketed,
     segreduce_plain,
 )
 from gnn_ecommerce_tpu_torch.ops.spmm_sharded import (
@@ -263,6 +285,7 @@ from gnn_ecommerce_tpu_torch.parallel import (
     shard_fast_bipartite,
     shard_params,
     sharded_evaluate,
+    sharded_fast_embedding,
     split_ep_tree,
 )
 from gnn_ecommerce_tpu_torch.parallel.distributed import all_gather_rows, barrier, init_distributed
@@ -314,7 +337,9 @@ REQUESTS_PER_SIZE, WARMUP_REQUESTS = 300, 5
 ITEM_SKEW, USER_SKEW = 0.9, 0.75
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
-# (kernel wrapper, mode) per row of the kernels line.
+# (kernel wrapper, mode) per row of the kernels line. K1's rows also count
+# the launches of its accumulate mode (ACCUMULATE), which the line breaks
+# out as each row's accumulate_launches.
 KERNELS = {
     "segreduce_f32": (SEGREDUCE, "float32"),
     "segreduce_bf16": (SEGREDUCE, "bfloat16"),
@@ -327,6 +352,12 @@ KERNELS = {
     "lane_gather_1xn": (LANE_GATHER, "1xn"),
     "lane_gather_8x512": (LANE_GATHER, "8x512"),
 }
+ACCUMULATE = {"segreduce_f32": "float32_accumulate", "segreduce_bf16": "bfloat16_accumulate"}
+# The src-bucketed to_items plan: phase 3 holds it at the main configuration's
+# tail with each bucket count here; the benchmark's candidate has
+# bench.SRC_BUCKETS (K1 launches a call: one, then one accumulate per later
+# bucket).
+BUCKET_COUNTS = (8, 16)
 # The to_users row shares K2's bf16 counter with the row above: its launches
 # are the ones made in these sections of probes/proto_segreduce.py's main,
 # and the row above keeps the rest.
@@ -439,9 +470,13 @@ def reset_launches() -> None:
 
 
 def read_launches(to_users: int = 0) -> dict:
-    """Each row's launches since the last reset; ``to_users`` of K2's bf16
-    launches go to the to_users row."""
+    """Each row's launches since the last reset (K1's with its accumulate
+    launches, which ``<row>_accumulate`` also counts apart); ``to_users``
+    of K2's bf16 launches go to the to_users row."""
     counts = {name: kernel.launches[mode] for name, (kernel, mode) in KERNELS.items()}
+    for name, mode in ACCUMULATE.items():
+        counts[f"{name}_accumulate"] = SEGREDUCE.launches[mode]
+        counts[name] += SEGREDUCE.launches[mode]
     counts["tile_segreduce_bf16"] -= to_users
     counts[TO_USERS] = to_users
     return counts
@@ -570,14 +605,15 @@ def device_profile(label: str, fn, top: int = 6) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} {e.key[:90]}")
 
 
-def pass_times(fn, names: dict, label: str = "", calls: int = 5, attempts: int = 3) -> dict | None:
+def pass_times(fn, names: dict, label: str = "", calls: int = 5, attempts: int = 3,
+               per_call: int = 1) -> dict | None:
     """Device ms per call of each pass of ``fn``, over ``calls`` calls under
     torch.profiler. ``names`` maps a key of each pass's kernel symbol to the
-    pass's short name; every pass launches once a call. None unless, in one
-    of ``attempts`` fresh profiles, the profiler recorded each pass exactly
-    ``calls`` times and no other kernel: it has dropped kernels before,
-    and a missing launch is not made up (a printed line says so, after
-    ``label``)."""
+    pass's short name; every pass launches ``per_call`` times a call. None
+    unless, in one of ``attempts`` fresh profiles, the profiler recorded
+    each pass exactly ``calls · per_call`` times and no other kernel: it has
+    dropped kernels before, and a missing launch is not made up (a printed
+    line says so, after ``label``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -595,10 +631,11 @@ def pass_times(fn, names: dict, label: str = "", calls: int = 5, attempts: int =
             short = next((s for key, s in names.items() if key in e.key), e.key[:60])
             ms[short] = ms.get(short, 0.0) + e.self_device_time_total / 1e3
             counts[short] = counts.get(short, 0) + e.count
-        if counts == {short: calls for short in names.values()}:
+        if counts == {short: calls * per_call for short in names.values()}:
             return {short: total / calls for short, total in ms.items()}
     print(f"  {label} passes not measured: launches recorded in {calls} calls {counts} (the last of "
-          f"{attempts} profiles), expected each of {sorted(names.values())} {calls} times", flush=True)
+          f"{attempts} profiles), expected each of {sorted(names.values())} {calls * per_call} times",
+          flush=True)
     return None
 
 
@@ -793,6 +830,122 @@ def check_kernel_cases(dev: torch.device, seed: int) -> None:
     print(f"  K1 through gather_segreduce on {', '.join(layouts)} f32 tables, f32 and bf16: held",
           flush=True)
     torch.cuda.synchronize()
+
+
+def check_accumulate_cases(dev: torch.device, seed: int) -> None:
+    """K1's accumulate mode against ``segreduce_plain(prev=)`` and an f64
+    sum of the same products with check_kernel's tolerance (``hold``), from
+    a random ``prev``: k1_case_plan's rows
+    (empty ones, a 2,000-chunk hub) at CH 256 and 32 on f32, bf16 and padded
+    bf16 tables at every width of K1_CASE_DIMS; a plan with no arc (an empty
+    bucket, on a table of 0 rows and of 1); a plan whose every arc lands in
+    one hub row. Rows with no arc keep ``prev``'s bits; two launches give
+    the same bytes."""
+    rng = np.random.default_rng(seed + 7)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    n_src, n_out = 200_000, 309
+
+    def hold(table, plan, label):
+        prev = torch.randn(plan.n_out, table.shape[1], generator=gen, device=dev)
+        out = SEGREDUCE(table, plan, prev.clone())
+        assert torch.equal(out, SEGREDUCE(table, plan, prev.clone())), label
+        ref = segreduce_plain(table, plan, prev)
+        # The same products summed in f64: the plain version's index_add_
+        # adds a hub row's 512,007 f32 terms in no fixed order, and its own
+        # rounding there reaches the tolerance (8.4e-5 against 5.0e-5 in a
+        # D 250 bf16 hub row), so the kernel is held to the f64 sum at the
+        # plain mode's tolerance, and to the plain version at that
+        # tolerance plus the plain version's own distance from the f64 sum.
+        w64 = (plan.w if table.dtype == torch.float32 else plan.w.to(torch.bfloat16)).double()
+        ref64 = torch.zeros(plan.n_out, table.shape[1], dtype=torch.float64, device=dev)
+        ref64.index_add_(0, plan.dst, table.index_select(0, plan.src).double() * w64[:, None])
+        ref64 += prev.double()
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(out.double(), ref64, rtol=1e-4, atol=1e-5 * scale,
+                                   msg=lambda m: f"{label} vs f64: {m}")
+        allowed = 1e-4 * ref.abs() + 1e-5 * scale + (ref.double() - ref64).abs()
+        assert bool(((out - ref).abs() <= allowed).all()), f"{label}: kernel and plain version differ"
+        empty = plan.row_chunk_ptr[1:] == plan.row_chunk_ptr[:-1]
+        assert torch.equal(out[empty], prev[empty]), f"{label}: a row with no arc changed"
+
+    hub_arcs = 2000 * 256 + 7
+    plans = {
+        "cases CH 256": k1_case_plan(rng, 256, n_src, dev),
+        "cases CH 32": k1_case_plan(rng, 32, n_src, dev),
+        "one hub row": build_segreduce_plan(
+            rng.integers(0, n_src, hub_arcs).astype(np.int32), np.full(hub_arcs, 5),
+            rng.random(hub_arcs).astype(np.float32) / 512, n_out, device=dev),
+        "no arc": build_segreduce_plan(np.zeros(0, np.int32), np.zeros(0, np.int64),
+                                       np.zeros(0, np.float32), n_out, device=dev),
+    }
+    for d in K1_CASE_DIMS:
+        x = torch.randn(n_src, d, generator=gen, device=dev)
+        for label, table in (("f32", x), ("bf16", x.to(torch.bfloat16)), ("bf16 padded", bf16_rows(x))):
+            for name, plan in plans.items():
+                hold(table, plan, f"accumulate {name} D {d} {label}")
+            for rows in (0, 1):  # the slices an empty or one-user bucket reads
+                hold(table[7 : 7 + rows], plans["no arc"], f"accumulate {rows}-row table D {d} {label}")
+    torch.cuda.synchronize()
+    print(f"  K1 accumulate mode: {', '.join(plans)} and 0- and 1-row tables; D {K1_CASE_DIMS}, f32, "
+          "bf16, bf16 padded: held against segreduce_plain(prev=) and an f64 sum, rows with no arc "
+          "unchanged", flush=True)
+
+
+def check_bucketed(label: str, table16: torch.Tensor, plan, tail: tuple, n_src: int,
+                   n_buckets: int) -> dict:
+    """``gather_segreduce_bucketed`` on the bf16 table over ``tail``'s arcs
+    (src, dst, w) cut into ``n_buckets`` source ranges, against the
+    unbucketed K1 over ``plan`` (the same arcs) and against its plain
+    version (check_kernel's tolerance); K1 launches a call (one, then one
+    accumulate a later bucket); times of both beside the unbucketed input-
+    once bound (k1_bytes), which reckons the same work."""
+    t0 = time.perf_counter()
+    bplan = build_bucketed_segreduce_plan(*tail, plan.n_out, n_src, n_buckets, device=table16.device)
+    build_s = time.perf_counter() - t0
+    before = dict(SEGREDUCE.launches)
+    out = gather_segreduce_bucketed(table16, bplan, torch.bfloat16)
+    launched = {m: SEGREDUCE.launches[m] - before[m] for m in ("bfloat16", "bfloat16_accumulate")}
+    assert launched == {"bfloat16": 1, "bfloat16_accumulate": n_buckets - 1}, launched
+    ref = SEGREDUCE(table16, plan)
+
+    def plain_passes():
+        acc = None
+        for (lo, hi), p in zip(bplan.spans, bplan.buckets):
+            acc = segreduce_plain(table16[lo:hi], p, acc)
+        return acc
+
+    plain = plain_passes()
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-5 * scale)
+    err_plain = (out - plain).abs().max().item()
+    del out, ref, plain
+    bytes_once, bytes_gather, flops = k1_bytes(table16, plan)
+    bound_ms = max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    ms = time_ms(lambda: gather_segreduce_bucketed(table16, bplan, torch.bfloat16))
+    unbucketed_ms = time_ms(lambda: SEGREDUCE(table16, plan))
+    plain_ms = time_ms(plain_passes, reps=3)
+    sub_mb = max(hi - lo for lo, hi in bplan.spans) * table16.stride(0) * table16.element_size() / 1e6
+    passes = pass_times(lambda: gather_segreduce_bucketed(table16, bplan, torch.bfloat16),
+                        {"chunks": "chunks", "combine": "combine"}, f"{label} {n_buckets} buckets",
+                        per_call=n_buckets)
+    row = {
+        "n_buckets": n_buckets, "launches_per_call": n_buckets, "max_abs_err": err,
+        "max_abs_err_vs_plain": err_plain, "ms": ms, "unbucketed_ms": unbucketed_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "gather_bound_ms": bytes_gather / HBM_BYTES_PER_S * 1e3,
+        "chunks": sum(p.n_chunks for p in bplan.buckets), "unbucketed_chunks": plan.n_chunks,
+        "sub_table_mb": sub_mb, "build_s": build_s, "pass_ms": passes,
+    }
+    print(
+        f"  {label} bucketed K1 bf16, {n_buckets} buckets ({n_buckets} launches a call, largest "
+        f"sub-table {sub_mb:.1f} MB, chunks {row['chunks']} vs {plan.n_chunks}, build {build_s:.2f} s): "
+        f"max_abs_err {err:.3e} vs unbucketed K1 (max |ref| {scale:.3e}), {err_plain:.3e} vs plain; "
+        f"ms {ms:.4f} unbucketed_ms {unbucketed_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+        f"gather_bound_ms {row['gather_bound_ms']:.4f}; device ms a call by pass {passes}",
+        flush=True,
+    )
+    return row
 
 
 def tail_messages(table16: torch.Tensor, plan) -> torch.Tensor:
@@ -2086,21 +2239,52 @@ def gspmd_train_steps(fb16, cfg, mesh, table, batches, refs, dev) -> tuple[list,
     return rows, sfb
 
 
-def train_world1(split, cfg, item_op32, item_op16, table, batches, refs32, refs16, dev) -> dict:
+def segment_train_steps(fb16, cfg, mesh, table, batches, seg: dict, dev) -> tuple[dict, list]:
+    """The GSPMD segment-sum path, ``shard_fast_bipartite(fb16, mesh)`` with
+    JAX's default ``fast_ops=False``: ``sharded_fast_embedding`` against the
+    one-device plan-less forward (phase 4's bound), then the fast step on
+    each fixed batch (``run_mesh_steps``) against the one-device plan-less
+    step (``seg``: its forward and step references). Returns (the
+    forward's max |err| and ms, the steps' rows)."""
+    sfb = shard_fast_bipartite(fb16, mesh)
+    assert sfb.fops is None
+    params = shard_params({"embedding": table}, mesh)
+    with torch.no_grad():
+        fwd = {"err": assert_forward(sharded_fast_embedding(params, sfb, LAYERS), seg["emb"],
+                                     "GSPMD segment forward")}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sharded_fast_embedding(params, sfb, LAYERS)
+        torch.cuda.synchronize(dev)
+        fwd["ms"] = (time.perf_counter() - t0) * 1e3
+    step = make_sharded_fast_train_step(cfg, Adam(LR), mesh, BATCH, DECAY, EDGE_CAP)
+    rows = run_mesh_steps(
+        step, params, Adam(LR).init(params), sfb, batches, seg["refs"], "bfloat16",
+        lambda tree: unshard_params(tree, mesh, cfg.num_nodes), dev,
+        lambda p, o: ([p["embedding"], o.exp_avg["embedding"], o.exp_avg_sq["embedding"]], mesh),
+    )
+    return fwd, rows
+
+
+def train_world1(split, cfg, item_op32, fb16, table, batches, refs32, refs16, seg, dev) -> dict:
     """Phase 15 in a world of 1 over NCCL, in this process: the fast edge
     partition's bf16 step on every fixed batch and its f32 step on the
-    first (counted), then K1 in f32 and bf16 at this world's plans, both
-    directions (not counted): the forward's to_items, and the users-side
-    plan on the whole graph that the to_items backward runs."""
+    first, and the GSPMD segment-sum forward and steps (counted), then K1
+    in f32 and bf16 at this world's plans, both directions (not counted):
+    the forward's to_items, and the users-side plan on the whole graph that
+    the to_items backward runs."""
     init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl", device=dev)
     try:
         mesh = make_mesh(1, axis_sizes=(1,), axis_names=("model",), device=dev)
         reset_launches()
         out = {}
-        out["bf16"], fep16 = edge_train_steps(split, cfg, mesh, item_op16, "bfloat16", HEAVY_USERS,
+        out["bf16"], fep16 = edge_train_steps(split, cfg, mesh, fb16.item_op, "bfloat16", HEAVY_USERS,
                                               table, batches, refs16, dev)
         out["f32"], fep32 = edge_train_steps(split, cfg, mesh, item_op32, "float32", 0, table,
                                              batches[:1], refs32, dev)
+        out["segment_fwd"], out["segment"] = segment_train_steps(
+            fb16, cfg, make_mesh(1, axis_sizes=(1, 1), device=dev), table, batches, seg, dev
+        )
         out["launches"] = read_launches()
     finally:
         torch.distributed.destroy_process_group()
@@ -2119,7 +2303,8 @@ def train_world1(split, cfg, item_op32, item_op16, table, batches, refs32, refs1
 
 def train_rank(rank: int, world: int, store: str, payload: dict, queue) -> None:
     """One rank of phase 15's gloo world on cuda:0: the fast edge
-    partition's and the GSPMD fast bf16 steps (counted), then, in turns
+    partition's and the GSPMD fast bf16 steps, and the GSPMD segment-sum
+    forward and steps on a (data 2, model 1) mesh (counted), then, in turns
     with the other ranks (not counted), K1 at this rank's GSPMD shapes and
     its cast at the rank's edge-partition user rows. Puts its results, or its traceback, on ``queue``."""
     try:
@@ -2139,7 +2324,14 @@ def train_rank(rank: int, world: int, store: str, payload: dict, queue) -> None:
         res["gspmd"], sfb = gspmd_train_steps(p["fb16"], cfg, mesh2d, p["table"], p["batches"],
                                               p["refs16"], dev)
         torch.cuda.synchronize(dev)
-        res["edge_s"], res["gspmd_s"] = t1 - t0, time.perf_counter() - t1
+        t2 = time.perf_counter()
+        # The GSPMD segment-sum path with the arcs split over data.
+        res["segment_fwd"], res["segment"] = segment_train_steps(
+            p["fb16"], cfg, make_mesh(world, axis_sizes=(world, 1), device=dev), p["table"],
+            p["batches"], p["seg"], dev,
+        )
+        torch.cuda.synchronize(dev)
+        res["edge_s"], res["gspmd_s"], res["segment_s"] = t1 - t0, t2 - t1, time.perf_counter() - t2
         res["launches"] = read_launches()
         # K1 bf16 and its cast at this rank's GSPMD shapes (the gloo world
         # runs bf16 only), one rank at a time.
@@ -2179,32 +2371,48 @@ def mesh_train_path(split, cfg, params: dict, fb, fb16, prepared: PreparedData, 
     width on MESH_TRAIN_STEPS fixed batches, against the one-device
     main-path step from the same params: in a world of 1 over NCCL (edge
     bf16, and one edge f32 step), then in a gloo world of MESH_WORLD ranks
-    sharing this card (edge bf16 and GSPMD bf16). Returns (detail, the
+    sharing this card (edge bf16 and GSPMD bf16); in both, the GSPMD
+    segment-sum forward and steps against the one-device plan-less ones.
+    Returns (detail, the
     path's launches over every process, each gloo rank's K1 rows, the
     world of 1's K1 rows)."""
     batches = [fixed_batch(prepared, seed + 10 + b, dev) for b in range(MESH_TRAIN_STEPS)]
     refs16 = one_device_steps(fb16, params, batches)
     refs32 = one_device_steps(fb, params, batches[:1])
-    w1 = train_world1(split, cfg, fb.item_op, fb16.item_op, params["embedding"], batches,
-                      refs32, refs16, dev)
+    # The plan-less one-device references of the GSPMD segment-sum path
+    # (JAX's FastBipartite(split, item_op)) on the bf16 B_ii.
+    fb_seg = FastBipartite(split, fb16.item_op, user_csr=fb16.user_csr)
+    with torch.no_grad():
+        seg = {"emb": fast_get_embedding(params, fb_seg, LAYERS)}
+    seg["refs"] = one_device_steps(fb_seg, params, batches)
+    del fb_seg
+    w1 = train_world1(split, cfg, fb.item_op, fb16, params["embedding"], batches,
+                      refs32, refs16, seg, dev)
     counts = w1["launches"]
     assert counts["segreduce_f32"] >= 1 and counts["segreduce_bf16"] >= 1, counts
     payload = {
         "device": dev, "split": split, "num_nodes": cfg.num_nodes, "table": params["embedding"],
-        "fb16": fb16, "batches": batches, "refs16": refs16,
+        "fb16": fb16, "batches": batches, "refs16": refs16, "seg": seg,
     }
     ranks = mesh_world2(payload, train_rank, "phase 15")
-    del payload, refs16, refs32
+    del payload, refs16, refs32, seg
     for r in ranks:
         for name, n in r["launches"].items():
             counts[name] += n
         assert r["launches"]["segreduce_bf16"] >= 1 and r["launches"]["segreduce_cast_bf16"] >= 1, r["launches"]
+    seg_line = lambda r: (
+        f"GSPMD segment-sum forward max_abs_err {r['segment_fwd']['err']:.3e} vs one device, "
+        f"{r['segment_fwd']['ms']:.1f} ms; steps {steps_line(r['segment'])}"
+    )
     detail = (
         f"NCCL world 1: edge bf16 {steps_line(w1['bf16'])}; edge f32 {steps_line(w1['f32'])}; "
-        f"gloo world {MESH_WORLD}, ranks sharing one card (times are not a scaling figure): "
+        f"{seg_line(w1)}; "
+        f"gloo world {MESH_WORLD}, ranks sharing one card (times are staging through host memory, "
+        f"not a scaling figure): "
         + "; ".join(
             f"rank {r['rank']}: edge bf16 {steps_line(r['edge'])} ({r['edge_s']:.2f} s with the "
-            f"build); GSPMD bf16 {steps_line(r['gspmd'])} ({r['gspmd_s']:.2f} s with the build)"
+            f"build); GSPMD bf16 {steps_line(r['gspmd'])} ({r['gspmd_s']:.2f} s with the build); "
+            f"data 2: {seg_line(r)} ({r['segment_s']:.2f} s with the build)"
             for r in ranks
         )
     )
@@ -2384,9 +2592,20 @@ def bench_path(kind: str) -> tuple[dict, dict]:
     over = {k: v for k, v in shares.items() if not 0.0 < v <= 100.0}
     assert not over, f"roofline shares outside (0, 100]: {over}"
     launches = {name: r["launches"].get(f"{k.STEM}.{mode}", 0) for name, (k, mode) in KERNELS.items()}
+    for name, mode in ACCUMULATE.items():
+        launches[f"{name}_accumulate"] = r["launches"].get(f"{SEGREDUCE.STEM}.{mode}", 0)
+        launches[name] += launches[f"{name}_accumulate"]
     launches[TO_USERS] = 0
     for name in ("segreduce_bf16", "segreduce_cast_bf16"):
         assert launches[name] >= 1, f"the benchmark did not launch {name}"
+    # The bucketed candidate: SRC_BUCKETS K1 bf16 launches a to_items, all
+    # but the first accumulating; it runs whenever the plans have a head.
+    assert set(d["forward_ms"]) == {"segment", "plans", "bucketed"}, d["forward_ms"]
+    acc, per_call = launches["segreduce_bf16_accumulate"], bench.SRC_BUCKETS - 1
+    assert acc >= per_call and acc % per_call == 0, f"bucketed candidate: {acc} accumulate launches"
+    assert launches["segreduce_f32_accumulate"] == 0, launches
+    assert d["fast_path"] in ("segment", "plans", "bucketed"), d["fast_path"]
+    assert d["fast_forward_ms"] == min(d["forward_ms"].values()), d["forward_ms"]
     return r, launches
 
 
@@ -2397,17 +2616,20 @@ def check_bench_kernels(dev: torch.device) -> dict:
     kernels-line row by name."""
     graph, _, _ = bench.build_synthetic_graph(device="cpu")
     cfg = LightGCNConfig(graph.num_nodes, bench.DIM, bench.LAYERS)
-    plan = build_fast_ops(
-        split_graph(graph), "bfloat16", bench.HEAVY_USERS, "bfloat16", device=dev
-    ).items_plan
+    split = split_graph(graph)
+    plan = build_fast_ops(split, "bfloat16", bench.HEAVY_USERS, "bfloat16", device=dev).items_plan
     del graph
     E_u = init_params(torch.Generator().manual_seed(0), cfg, device=dev)["embedding"][: bench.N_USERS]
     print(f"  bench shapes: [{E_u.shape[0]}, {E_u.shape[1]}] user table, {plan.src.numel()} tail arcs",
           flush=True)
     with torch.no_grad():
         cast = check_cast(E_u)
-        k1 = check_kernel("segreduce_bf16", bf16_rows(E_u), plan)
-    del E_u, plan
+        E_u16 = bf16_rows(E_u)
+        k1 = check_kernel("segreduce_bf16", E_u16, plan)
+        tail = split_heavy_users(split, bench.HEAVY_USERS, "bfloat16", build_head=False, device="cpu")[2:5]
+        k1["bucketed"] = {str(bench.SRC_BUCKETS): check_bucketed(
+            "bench", E_u16, plan, tail, bench.N_USERS, bench.SRC_BUCKETS)}
+    del E_u, E_u16, plan
     torch.cuda.empty_cache()
     return {row["name"]: row for row in (cast, k1)}
 
@@ -2471,6 +2693,7 @@ def main(argv=None) -> int:
         rows = [check_kernel("segreduce_f32", E_u, full_plan)]
         del full_plan
         check_kernel_cases(dev, args.seed)
+        check_accumulate_cases(dev, args.seed)
         _, w_hi, t_src, t_dst, t_w, *_ = split_heavy_users(split, HEAVY_USERS, "bfloat16", device=dev)
         del w_hi
         tail_plan = build_segreduce_plan(t_src, t_dst, t_w, split.n_items, device=dev)
@@ -2478,6 +2701,11 @@ def main(argv=None) -> int:
         rows.append(check_cast(E_u))
         E_u16 = bf16_rows(E_u)
         rows.append(check_kernel("segreduce_bf16", E_u16, tail_plan))
+        rows[-1]["bucketed"] = {
+            str(nb): check_bucketed("main configuration", E_u16, tail_plan, (t_src, t_dst, t_w),
+                                    split.n_users, nb)
+            for nb in BUCKET_COUNTS
+        }
         msgs = tail_messages(E_u16, tail_plan)
         rows.append(check_stream_sum(msgs))
         del tail_plan, E_u, E_u16, msgs
@@ -2815,6 +3043,8 @@ def main(argv=None) -> int:
     for row in rows:
         if row["name"] in bench_rows:
             row["bench"] = {key: bench_rows[row["name"]][key] for key in CLI_ROW_KEYS}
+            if "bucketed" in bench_rows[row["name"]]:
+                row["bench"]["bucketed"] = bench_rows[row["name"]]["bucketed"]
     d = line["detail"]
     rl = d["roofline"]
     phase(
@@ -2832,10 +3062,15 @@ def main(argv=None) -> int:
     )
 
     t0 = time.perf_counter()
-    totals = {name: sum(counts[name] for counts in path_launches.values()) for name in (*KERNELS, TO_USERS)}
+    names = (*KERNELS, TO_USERS, *(f"{name}_accumulate" for name in ACCUMULATE))
+    totals = {name: sum(counts[name] for counts in path_launches.values()) for name in names}
     for row in rows:
         row["launches"] = totals[row["name"]]
         row["launches_by_path"] = {p: counts[row["name"]] for p, counts in path_launches.items()}
+        if row["name"] in ACCUMULATE:  # of those, the accumulate mode's
+            acc = f"{row['name']}_accumulate"
+            row["accumulate_launches"] = totals[acc]
+            row["accumulate_launches_by_path"] = {p: counts[acc] for p, counts in path_launches.items()}
         assert row["launches"] >= 1, f"{row['name']} was not launched on the main path"
     assert path_launches["train"]["segreduce_bf16"] >= 1
     print(json.dumps({"kernels": rows}), flush=True)

@@ -9,9 +9,12 @@ held out), dim 80, 4 layers, batch 1024, 25,000 eval users. It measures
 - the one-time builds: B_ii in bf16 and the SpMM plans (K1 bf16 tail plan,
   16,384-user bf16 head, ELL), wall clock of both;
 - the fast forward twice, plan-less (the sorted segment sums,
-  ``FastBipartite(split, item_op)``) and with the plans; the faster sets
-  ``value``, LOGICAL edges per second (arcs x layers the layered path
-  would process for the same result);
+  ``FastBipartite(split, item_op)``) and with the plans, then, where the
+  plans won, a third time with their to_items plan bucketed by 8 ranges of
+  source users (``build_bucketed_segreduce_plan``: one K1 pass per bucket,
+  each reading a slice of the user table); the fastest sets ``value``,
+  LOGICAL edges per second (arcs x layers the layered path would process
+  for the same result), and ``fast_path`` names it;
 - the BPR train step (5 + 30 untimed steps, then 30 timed, one host sync)
   and one eval over the held-out purchases (R@20);
 - a roofline per phase against this card's published rates;
@@ -29,13 +32,13 @@ on ``cuda`` and raises without a card; ``--device cpu`` (``main(device=
 Left out from root ``bench.py``: the scalar pull of its timer and the per-
 call overhead netting (TPU remedies; times here are CUDA events), the
 900 s join and the fallback to the segment path when a plan build fails (a
-failure raises), the ``except`` around the plans path, and the
-src-bucketed candidate (a design measured and rejected on the TPU:
-``docs/PERFORMANCE.md``, "Rejected design").
+failure raises), and the ``except`` around the plans path and the bucketed
+candidate (a failed build or launch raises).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,9 +61,16 @@ from .ops.bipartite import (
     fast_get_embedding,
     item_chain_core,
     split_graph,
+    split_heavy_users,
 )
 from .ops.propagate import propagate_segment_chunked
-from .ops.spmm_fast import bf16_rows, ell_apply, gather_segreduce
+from .ops.spmm_fast import (
+    bf16_rows,
+    build_bucketed_segreduce_plan,
+    ell_apply,
+    gather_segreduce,
+    gather_segreduce_bucketed,
+)
 from .probes._timing import log, time_ms
 from .sampling.bpr import make_sampler_data
 from .train.step import Adam, make_train_fns
@@ -77,6 +87,7 @@ EPOCHS = 20
 EVAL_USERS = 25_000
 REFERENCE_HOURS = 24.0
 HEAVY_USERS = 16_384
+SRC_BUCKETS = 8  # source-user ranges of the bucketed to_items candidate
 LR, DECAY = 0.005, 1e-4
 # The CPU run's tiny shape (tests).
 CPU_SHAPE = dict(n_users=3_000, n_items=500, n_edges=20_000, dim=16, batch=256,
@@ -242,13 +253,18 @@ def segment_bytes(csr, n_out: int, d: int) -> int:
 
 
 def roofline(fb_plans: FastBipartite, fb_seg: FastBipartite, params: dict, layers: int,
-             fwd_ms: dict, step_ms: float, path: str, dev: torch.device) -> dict:
+             fwd_ms: dict, step_ms: float, path: str, dev: torch.device,
+             bucketed_plan=None) -> dict:
     """Per phase of both forwards: the bytes it must move (each input read
     once, each output written once), the operations, the floor on this
     card and the phase's time alone. The ``forward`` and ``train_step``
     blocks sum the floors of the path that ran (``path``); the train step
     pays to_items and its transpose once, the heads and the chain twice,
-    and Adam's streams."""
+    and Adam's streams. ``to_items_k1`` reckons the same work whatever plan
+    does it: on the ``"bucketed"`` path its time is that of
+    ``bucketed_plan``'s passes, against the unbucketed floor (the buckets'
+    read-modify-writes of the output are the design's cost, not the
+    work's)."""
     fops = fb_plans.fops
     n_users, n_items = fb_plans.n_users, fb_plans.n_items
     E = params["embedding"]
@@ -265,8 +281,12 @@ def roofline(fb_plans: FastBipartite, fb_seg: FastBipartite, params: dict, layer
         x16 = bf16_rows(x_users)
         rows_read = torch.unique(plan.src).numel()
         k1_once = rows_read * d * 2 + arcs * 8 + (plan.n_chunks + plan.n_out + 2) * 8 + plan.n_out * d * 4
+        if path == "bucketed":
+            k1 = lambda: gather_segreduce_bucketed(x16, bucketed_plan, torch.bfloat16)
+        else:
+            k1 = lambda: gather_segreduce(x16, plan, torch.bfloat16)
         phases["to_items_k1"] = phase_row(
-            k1_once, 2.0 * arcs * d, "f32", t(lambda: gather_segreduce(x16, plan, torch.bfloat16)),
+            k1_once, 2.0 * arcs * d, "f32", t(k1),
             arcs=arcs, gather_bytes=arcs * d * 2 + arcs * 8 + plan.n_out * d * 4,
         )
         del x16
@@ -306,7 +326,7 @@ def roofline(fb_plans: FastBipartite, fb_seg: FastBipartite, params: dict, layer
         )
     # The sparse phases of one forward on each path (the head once per
     # direction); the chain is added below.
-    if path == "plans":
+    if path in ("plans", "bucketed"):
         parts = ["to_items_cast", "to_items_k1", "to_users_ell"]
         parts += 2 * ["heavy_head_per_direction"] if "heavy_head_per_direction" in phases else []
     else:
@@ -402,6 +422,34 @@ def main(device="cuda") -> dict:
             f"{fwd_ms['segment']:.1f} ms) — possible regression in the fast plans")
     fb = fb_plans if path == "plans" else fb_seg
     t_fast = fwd_ms[path]
+
+    # Root bench.py's bucketed candidate: the plans' to_items plan over the
+    # same heavy-user-stripped arcs, cut into SRC_BUCKETS source ranges,
+    # beside the plans' own head and ELL. It is exact only beside the dense
+    # head that covers those users, so it runs only when the plans have
+    # one; it replaces the best so far only if it is faster.
+    bucketed_plan = None
+    if fb_plans.fops.w_hi is not None:
+        tb = time.perf_counter()
+        _, _, b_src, b_dst, b_w, *_ = split_heavy_users(
+            split, s["heavy_users"], "bfloat16", build_head=False, device=dev
+        )
+        bucketed_plan = build_bucketed_segreduce_plan(
+            b_src, b_dst, b_w, n_items, n_src=n_users, n_buckets=SRC_BUCKETS, device=dev
+        )
+        fb_b = FastBipartite(split, item_op, dataclasses.replace(fb_plans.fops, items_plan=bucketed_plan),
+                             user_csr=fb_seg.user_csr)
+        _sync(dev)
+        t_bplan = time.perf_counter() - tb
+        with torch.no_grad():
+            fwd_ms["bucketed"] = time_ms(lambda: fast_get_embedding(params, fb_b, LAYERS), dev, reps=10)
+        log(f"fast + bucketed to_items ({SRC_BUCKETS} src buckets; build {t_bplan:.1f}s): "
+            f"{fwd_ms['bucketed']:.1f} ms ({t_fast / fwd_ms['bucketed']:.2f}x vs current best)")
+        if fwd_ms["bucketed"] < t_fast:
+            path, fb, t_fast = "bucketed", fb_b, fwd_ms["bucketed"]
+            log("bucketed to_items KEPT")
+        else:
+            del fb_b
     edges_per_s = logical_edges / t_fast * 1e3
 
     # The train step on the purchase-edge sampler.
@@ -442,7 +490,7 @@ def main(device="cuda") -> dict:
         f"random-ranker floor ~{20 / n_items:.2e})")
     del final_emb
 
-    rl = roofline(fb_plans, fb_seg, params, LAYERS, fwd_ms, step_s * 1e3, path, dev)
+    rl = roofline(fb_plans, fb_seg, params, LAYERS, fwd_ms, step_s * 1e3, path, dev, bucketed_plan)
     log(f"roofline: forward floor {rl['forward']['floor_ms']:.3f} ms "
         f"({rl['forward']['pct_of_floor']:.1f}% of floor reached); step floor "
         f"{rl['train_step']['floor_ms']:.3f} ms ({rl['train_step']['pct_of_floor']:.1f}% reached)")

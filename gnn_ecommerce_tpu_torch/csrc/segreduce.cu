@@ -48,6 +48,14 @@
 // No atomics: the order of every sum is fixed by the plan and the table's
 // layout, so the result is the same bytes every run.
 //
+// Accumulate mode (accumulate != 0): out = out + Â · x, the TPU kernel's
+// `prev` (spmm_fast.py:284-292, 312-315) that chains the passes of a plan
+// cut by source ranges. Every output row has exactly one writer (its only
+// chunk in pass 1, else its combine in pass 2), so the mode is a flag on
+// those two writes: the row's sum is added onto what out holds, and an
+// empty row is left as it is instead of zeroed. Still no atomics and a
+// fixed order: out[row] + (the row's sum in the order above).
+//
 // segreduce_cast_bf16 writes the padded bf16 table that pass 1 reads 16
 // bytes a lane: out[r, c] = bf16(x[r, c]) for c < d and 0 in the pad
 // columns up to the 16-byte stride, in one pass over x (32-row tiles staged
@@ -156,7 +164,7 @@ segreduce_chunks(const T* __restrict__ x, int64_t stride, int d, int nv16,
                  const int32_t* __restrict__ src, const float* __restrict__ w,
                  const int64_t* __restrict__ chunk_ptr,
                  const int32_t* __restrict__ chunk_slot, int64_t n_chunks,
-                 float* __restrict__ partial, float* __restrict__ out) {
+                 float* __restrict__ partial, float* __restrict__ out, int accumulate) {
   using R = typename Raw<T, V>::type;
   constexpr int kU = kBatchBytes / (J16 * kStageBytes);  // copy steps per batch
   constexpr int kJ = 8 / V;  // column vectors a lane may own (d <= 256)
@@ -270,12 +278,13 @@ segreduce_chunks(const T* __restrict__ x, int64_t stride, int d, int nv16,
   if (grp != 0) return;
   float* o = dest >= 0 ? out + static_cast<int64_t>(dest) * d
                        : partial + static_cast<int64_t>(-1 - dest) * d;
+  const bool onto = accumulate && dest >= 0;  // partial rows are always written
 #pragma unroll
   for (int j = 0; j < kJ; ++j) {
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       const int c = (svec + 32 * j) * V + e;
-      if (c < d) o[c] = acc[j * V + e];
+      if (c < d) o[c] = onto ? __fadd_rn(o[c], acc[j * V + e]) : acc[j * V + e];
     }
   }
 }
@@ -291,7 +300,7 @@ __global__ void __launch_bounds__(kCombineWarps * 32, C <= 4 ? 6 : 3)
 segreduce_combine(const float* __restrict__ partial,
                   const int32_t* __restrict__ comb_rows,
                   const int64_t* __restrict__ comb_ptr, int64_t n_comb,
-                  int64_t n_long, int d, float* __restrict__ out) {
+                  int64_t n_long, int d, float* __restrict__ out, int accumulate) {
   __shared__ float warp_sum[kCombineWarps][kMaxCols];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool whole_block = blockIdx.x < n_long;
@@ -299,6 +308,7 @@ segreduce_combine(const float* __restrict__ partial,
                                 : n_long + (blockIdx.x - n_long) * kCombineWarps + warp;
   if (b >= n_comb) return;  // a whole warp of the last block
   const int64_t lo = comb_ptr[b], hi = comb_ptr[b + 1];
+  if (accumulate && lo == hi) return;  // an empty row keeps what out holds
   const int first = whole_block ? warp : 0, step = whole_block ? kCombineWarps : 1;
   float acc[C];
 #pragma unroll
@@ -327,7 +337,7 @@ segreduce_combine(const float* __restrict__ partial,
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int c = lane + 32 * k;
-      if (c < d) o[c] = acc[k];
+      if (c < d) o[c] = accumulate ? __fadd_rn(o[c], acc[k]) : acc[k];
     }
     return;
   }
@@ -341,7 +351,7 @@ segreduce_combine(const float* __restrict__ partial,
     float s = warp_sum[0][c];
 #pragma unroll
     for (int g = 1; g < kCombineWarps; ++g) s = __fadd_rn(s, warp_sum[g][c]);
-    o[c] = s;
+    o[c] = accumulate ? __fadd_rn(o[c], s) : s;
   }
 }
 
@@ -389,32 +399,34 @@ cast_bf16_tile(const float* __restrict__ x, int64_t n_rows, int d, int64_t out_s
 template <typename T, int V, int J16>
 int launch_chunks(const void* x, int64_t stride, int d, int nv16, const int32_t* src,
                   const float* w, const int64_t* chunk_ptr, const int32_t* chunk_slot,
-                  int64_t n_chunks, float* partial, float* out, cudaStream_t stream) {
+                  int64_t n_chunks, float* partial, float* out, int accumulate,
+                  cudaStream_t stream) {
   constexpr int kSmem = kWarpsPerBlock * (kRingBytes + kIndexWindow * 8);
   static_assert(kSmem <= 48 * 1024, "more dynamic shared memory needs cudaFuncSetAttribute");
   const int64_t blocks = (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
   segreduce_chunks<T, V, J16><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, kSmem, stream>>>(
       static_cast<const T*>(x), stride, d, nv16, src, w, chunk_ptr, chunk_slot, n_chunks,
-      partial, out);
+      partial, out, accumulate);
   return cudaSuccess;
 }
 
 template <typename T, int V>
 int dispatch_j16(int nv16, const void* x, int64_t stride, int d, const int32_t* src,
                  const float* w, const int64_t* chunk_ptr, const int32_t* chunk_slot,
-                 int64_t n_chunks, float* partial, float* out, cudaStream_t stream) {
+                 int64_t n_chunks, float* partial, float* out, int accumulate,
+                 cudaStream_t stream) {
   const int j16 = (nv16 + 31) / 32;
   if (j16 == 1)
     return launch_chunks<T, V, 1>(x, stride, d, nv16, src, w, chunk_ptr, chunk_slot, n_chunks,
-                                  partial, out, stream);
+                                  partial, out, accumulate, stream);
   if constexpr (V * sizeof(T) < 16) {  // 16-byte aligned rows of <= 256 values span <= 32 vectors
     if (j16 == 2)
       return launch_chunks<T, V, 2>(x, stride, d, nv16, src, w, chunk_ptr, chunk_slot, n_chunks,
-                                    partial, out, stream);
+                                    partial, out, accumulate, stream);
     if constexpr (sizeof(T) == 4) {
       if (j16 <= 4)
         return launch_chunks<T, V, 4>(x, stride, d, nv16, src, w, chunk_ptr, chunk_slot,
-                                      n_chunks, partial, out, stream);
+                                      n_chunks, partial, out, accumulate, stream);
     }
   }
   return cudaErrorInvalidValue;
@@ -422,17 +434,19 @@ int dispatch_j16(int nv16, const void* x, int64_t stride, int d, const int32_t* 
 
 template <int C>
 void launch_combine(const float* partial, const int32_t* comb_rows, const int64_t* comb_ptr,
-                    int64_t n_comb, int64_t n_long, int d, float* out, cudaStream_t stream) {
+                    int64_t n_comb, int64_t n_long, int d, float* out, int accumulate,
+                    cudaStream_t stream) {
   const int64_t blocks = n_long + (n_comb - n_long + kCombineWarps - 1) / kCombineWarps;
   segreduce_combine<C><<<static_cast<unsigned>(blocks), kCombineWarps * 32, 0, stream>>>(
-      partial, comb_rows, comb_ptr, n_comb, n_long, d, out);
+      partial, comb_rows, comb_ptr, n_comb, n_long, d, out, accumulate);
 }
 
 template <typename T>
 int launch(const void* x, int64_t stride, int d, int vec, const int32_t* src,
            const float* w, const int64_t* chunk_ptr, const int32_t* chunk_slot,
            int64_t n_chunks, const int32_t* comb_rows, const int64_t* comb_ptr,
-           int64_t n_comb, int64_t n_long, float* partial, float* out, cudaStream_t stream) {
+           int64_t n_comb, int64_t n_long, float* partial, float* out, int accumulate,
+           cudaStream_t stream) {
   if (d <= 0 || d > kMaxCols || stride < d || n_long < 0 || n_long > n_comb)
     return cudaErrorInvalidValue;
   // The rows' alignment (a power of two up to 16 bytes) must hold a lane's
@@ -446,24 +460,24 @@ int launch(const void* x, int64_t stride, int d, int vec, const int32_t* src,
     int rc = cudaErrorInvalidValue;
     if (vec == 1) {
       rc = dispatch_j16<T, 1>(nv16, x, stride, d, src, w, chunk_ptr, chunk_slot, n_chunks,
-                              partial, out, stream);
+                              partial, out, accumulate, stream);
     } else if (vec == 2) {
       rc = dispatch_j16<T, 2>(nv16, x, stride, d, src, w, chunk_ptr, chunk_slot, n_chunks,
-                              partial, out, stream);
+                              partial, out, accumulate, stream);
     } else if constexpr (sizeof(T) == 2) {
       if (vec == 8)
         rc = dispatch_j16<T, 8>(nv16, x, stride, d, src, w, chunk_ptr, chunk_slot, n_chunks,
-                                partial, out, stream);
+                                partial, out, accumulate, stream);
     }
     if (rc != cudaSuccess) return rc;
   }
   if (n_comb > 0) {
     switch ((d + 31) / 32) {
-      case 1: launch_combine<1>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, stream); break;
-      case 2: launch_combine<2>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, stream); break;
-      case 3: launch_combine<3>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, stream); break;
-      case 4: launch_combine<4>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, stream); break;
-      default: launch_combine<8>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, stream); break;
+      case 1: launch_combine<1>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, accumulate, stream); break;
+      case 2: launch_combine<2>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, accumulate, stream); break;
+      case 3: launch_combine<3>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, accumulate, stream); break;
+      case 4: launch_combine<4>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, accumulate, stream); break;
+      default: launch_combine<8>(partial, comb_rows, comb_ptr, n_comb, n_long, d, out, accumulate, stream); break;
     }
   }
   return cudaGetLastError();
@@ -476,9 +490,10 @@ extern "C" int segreduce_f32(const void* x, int64_t stride, int d, int vec,
                              const int64_t* chunk_ptr, const int32_t* chunk_slot,
                              int64_t n_chunks, const int32_t* comb_rows,
                              const int64_t* comb_ptr, int64_t n_comb, int64_t n_long,
-                             float* partial, float* out, cudaStream_t stream) {
+                             float* partial, float* out, int accumulate,
+                             cudaStream_t stream) {
   return launch<float>(x, stride, d, vec, src, w, chunk_ptr, chunk_slot, n_chunks,
-                       comb_rows, comb_ptr, n_comb, n_long, partial, out, stream);
+                       comb_rows, comb_ptr, n_comb, n_long, partial, out, accumulate, stream);
 }
 
 extern "C" int segreduce_bf16(const void* x, int64_t stride, int d, int vec,
@@ -486,10 +501,11 @@ extern "C" int segreduce_bf16(const void* x, int64_t stride, int d, int vec,
                               const int64_t* chunk_ptr, const int32_t* chunk_slot,
                               int64_t n_chunks, const int32_t* comb_rows,
                               const int64_t* comb_ptr, int64_t n_comb, int64_t n_long,
-                              float* partial, float* out, cudaStream_t stream) {
+                              float* partial, float* out, int accumulate,
+                              cudaStream_t stream) {
   return launch<__nv_bfloat16>(x, stride, d, vec, src, w, chunk_ptr, chunk_slot,
                                n_chunks, comb_rows, comb_ptr, n_comb, n_long, partial,
-                               out, stream);
+                               out, accumulate, stream);
 }
 
 extern "C" int segreduce_cast_bf16(const float* x, int64_t n_rows, int d, int64_t out_stride,

@@ -77,18 +77,20 @@ class SegReduceKernel(_Kernel):
 
     Modes ``"float32"`` and ``"bfloat16"`` (the table's type): one call is
     one chunk pass, plus one combine pass when the plan has rows with no
-    chunk or several. Mode ``"cast_bf16"``: the padded bf16 table
-    (:meth:`cast_bf16`) that the bf16 mode reads 16 bytes a lane.
+    chunk or several. ``"float32_accumulate"`` and ``"bfloat16_accumulate"``
+    count the calls that add into a given output (``accumulate``) instead.
+    Mode ``"cast_bf16"``: the padded bf16 table (:meth:`cast_bf16`) that the
+    bf16 mode reads 16 bytes a lane.
     """
 
     STEM = "segreduce"
-    MODES = ("float32", "bfloat16", "cast_bf16")
+    MODES = ("float32", "bfloat16", "float32_accumulate", "bfloat16_accumulate", "cast_bf16")
     MAX_DIM = 256
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in (lib.segreduce_f32, lib.segreduce_bf16):
-            fn.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, i64, i64, ptr, ptr, ptr]
+            fn.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, i64, i64, ptr, ptr, i32, ptr]
             fn.restype = ctypes.c_int
         lib.segreduce_cast_bf16.argtypes = [ptr, i64, i32, i64, ptr, ptr]
         lib.segreduce_cast_bf16.restype = ctypes.c_int
@@ -102,13 +104,20 @@ class SegReduceKernel(_Kernel):
         return (d <= 1 or table.stride(1) == 1) and (n_rows <= 1 or table.stride(0) >= d)
 
     @staticmethod
-    def vector_width(table: torch.Tensor) -> int:
+    def row_stride(table: torch.Tensor) -> int:
+        """The row stride the kernel is given: the table's own, or D for a
+        table of at most one row whose stride is less (any, then)."""
+        n_rows, d = table.shape
+        return table.stride(0) if n_rows > 1 or table.stride(0) >= d else d
+
+    @classmethod
+    def vector_width(cls, table: torch.Tensor) -> int:
         """Row elements a lane reads at once: 8 (16 bytes) on bf16 rows that
         all start 16-byte aligned, else 2 (bf16 pairs, float2) on rows that
         start at a multiple of their size, else 1."""
         elt = table.element_size()
         for v in (8, 2) if table.dtype == torch.bfloat16 else (2,):
-            if table.stride(0) % v == 0 and table.data_ptr() % (v * elt) == 0:
+            if cls.row_stride(table) % v == 0 and table.data_ptr() % (v * elt) == 0:
                 return v
         return 1
 
@@ -125,9 +134,12 @@ class SegReduceKernel(_Kernel):
             raise ValueError(f"table has {n_rows} rows, the plan reads {plan.n_src}")
         return self.vector_width(table)
 
-    def __call__(self, table: torch.Tensor, plan) -> torch.Tensor:
+    def __call__(self, table: torch.Tensor, plan, accumulate: torch.Tensor | None = None) -> torch.Tensor:
         """[n_out, D] f32 from a CUDA ``table`` of f32 (exact mode) or bf16
-        (bf16 mode, weights rounded to bf16) rows."""
+        (bf16 mode, weights rounded to bf16) rows. With ``accumulate``, a
+        contiguous [n_out, D] f32 tensor on the table's device, the kernel
+        adds into it in place (rows with no arc keep their values) and
+        returns it."""
         modes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
         if not table.is_cuda:
             raise ValueError("the segreduce kernel takes a CUDA tensor")
@@ -136,19 +148,29 @@ class SegReduceKernel(_Kernel):
         vec = self.check_layout(table, plan)
         if plan.src.device != table.device:  # the plan's tensors share one device
             raise ValueError("plan and table must be on the same device")
-        n_rows, d = table.shape
+        d = table.shape[1]
         mode = modes[table.dtype]
+        if accumulate is not None:
+            if (accumulate.dtype != torch.float32 or tuple(accumulate.shape) != (plan.n_out, d)
+                    or not accumulate.is_contiguous() or accumulate.device != table.device):
+                raise ValueError(
+                    f"segreduce accumulates into a contiguous [{plan.n_out}, {d}] f32 tensor "
+                    "on the table's device"
+                )
+            mode += "_accumulate"
         lib = self.load()
-        fn = lib.segreduce_bf16 if mode == "bfloat16" else lib.segreduce_f32
+        fn = lib.segreduce_bf16 if table.dtype == torch.bfloat16 else lib.segreduce_f32
         partial = torch.empty(plan.n_partial, d, dtype=torch.float32, device=table.device)
-        out = torch.empty(plan.n_out, d, dtype=torch.float32, device=table.device)
+        out = accumulate if accumulate is not None else torch.empty(
+            plan.n_out, d, dtype=torch.float32, device=table.device
+        )
         with _on_device(table.device):
             rc = fn(
-                table.data_ptr(), table.stride(0) if n_rows > 1 else d, d, vec,
+                table.data_ptr(), self.row_stride(table), d, vec,
                 plan.src.data_ptr(), plan.w.data_ptr(), plan.chunk_ptr.data_ptr(),
                 plan.chunk_slot.data_ptr(), plan.n_chunks, plan.comb_rows.data_ptr(),
                 plan.comb_ptr.data_ptr(), plan.comb_rows.numel(), plan.n_long, partial.data_ptr(),
-                out.data_ptr(), _raw_stream(table.device),
+                out.data_ptr(), int(accumulate is not None), _raw_stream(table.device),
             )
         if rc != 0:
             raise RuntimeError(f"segreduce launch failed: cudaError {rc}")

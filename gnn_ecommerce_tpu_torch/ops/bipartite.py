@@ -42,12 +42,15 @@ from ..device import mm_f32, resolve_device
 from ..graph.build import BipartiteGraph
 from ..models.lightgcn import uniform_alphas
 from .spmm_fast import (
+    BucketedSegReducePlan,
     EllPlan,
     SegReducePlan,
+    build_bucketed_segreduce_plan,
     build_ell_plan,
     build_segreduce_plan,
     ell_apply,
     gather_segreduce,
+    gather_segreduce_bucketed,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -163,7 +166,8 @@ class FastOps:
         to_users[hi_ids] += w_hiᵀ @ x_items
     """
 
-    items_plan: SegReducePlan  # gather users → reduce to items (CUDA kernel)
+    # gather users → reduce to items (CUDA kernel), whole or by source ranges
+    items_plan: SegReducePlan | BucketedSegReducePlan
     users_ell: EllPlan  # gather items → reduce to users
     hi_ids: torch.Tensor | None = None  # [K] int32 heavy user ids
     w_hi: torch.Tensor | None = None  # [n_items, K] dense normalized weights
@@ -254,18 +258,22 @@ def build_fast_ops(
     device: str | torch.device = "cuda",
 ) -> FastOps:
     """The plans of both sparse directions and the optional heavy-user head
-    on ``device``. ``src_buckets > 0`` (the JAX package's src-bucketed
-    to_items plan, measured and rejected on the TPU) raises."""
-    if src_buckets > 0:
-        raise NotImplementedError(
-            "build_fast_ops(src_buckets > 0): the src-bucketed plan is not ported"
-        )
+    on ``device``. ``src_buckets > 0`` builds the to_items plan bucketed by
+    ranges of source users (:func:`build_bucketed_segreduce_plan` over the
+    tail arcs); the forward then runs one K1 pass per bucket, and the
+    backward stays the ELL, as in the JAX package."""
     dev = resolve_device(device)
     hi_ids, w_hi, ui_src, ui_dst, ui_w, iu_indptr, iu_src, iu_w, _ = split_heavy_users(
         split, heavy_users, heavy_dtype, device=dev
     )
+    if src_buckets > 0:
+        items_plan = build_bucketed_segreduce_plan(
+            ui_src, ui_dst, ui_w, split.n_items, n_src=split.n_users, n_buckets=src_buckets, device=dev
+        )
+    else:
+        items_plan = build_segreduce_plan(ui_src, ui_dst, ui_w, split.n_items, device=dev)
     return FastOps(
-        items_plan=build_segreduce_plan(ui_src, ui_dst, ui_w, split.n_items, device=dev),
+        items_plan=items_plan,
         users_ell=build_ell_plan(iu_indptr, iu_src, iu_w, split.n_users, device=dev),
         hi_ids=hi_ids,
         w_hi=w_hi,
@@ -274,7 +282,11 @@ def build_fast_ops(
 
 
 def _to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
-    out = gather_segreduce(x_users, fops.items_plan, _DTYPES[fops.msgs_dtype])
+    reduce = (
+        gather_segreduce_bucketed if isinstance(fops.items_plan, BucketedSegReducePlan)
+        else gather_segreduce
+    )
+    out = reduce(x_users, fops.items_plan, _DTYPES[fops.msgs_dtype])
     if fops.w_hi is not None:
         xh = x_users.index_select(0, fops.hi_ids).to(fops.w_hi.dtype)
         out = out + mm_f32(fops.w_hi, xh)
@@ -485,18 +497,17 @@ def build_fast_bipartite(
     ``fast_ops`` (else the plan-less segment-sum path: ``msgs_dtype`` and
     the heavy head are then not used, as in the JAX package).
     ``band_bytes=None`` bounds B_ii's f32 matmul bands at 1.5 GB when a
-    heavy head is resident, else 2.5 GB; ``src_buckets > 0`` raises
-    (:func:`build_fast_ops`)."""
-    if src_buckets > 0:
-        raise NotImplementedError(
-            "build_fast_bipartite(src_buckets > 0): the src-bucketed plan is not ported"
-        )
+    heavy head is resident, else 2.5 GB; ``src_buckets > 0`` buckets the
+    to_items plan (:func:`build_fast_ops`)."""
     dev = resolve_device(device)
     if band_bytes is None:
         band_bytes = 1.5e9 if (fast_ops and heavy_users > 0) else 2.5e9
     split = split_graph(graph)
     t0 = time.perf_counter()
-    fops = build_fast_ops(split, msgs_dtype, heavy_users, heavy_dtype, device=dev) if fast_ops else None
+    fops = (
+        build_fast_ops(split, msgs_dtype, heavy_users, heavy_dtype, src_buckets, device=dev)
+        if fast_ops else None
+    )
     user_csr = arc_csr(split, "users", dev)
     item_csr = None if fast_ops else arc_csr(split, "items", dev)
     t1 = time.perf_counter()

@@ -17,6 +17,9 @@ _EXPORTS = {
     "mesh_factorization": "mesh",
     "make_sharded_train_step": "sharded_train",
     "make_sharded_fast_train_step": "sharded_train",
+    "ShardedFastBipartite": "sharded_train",
+    "shard_arcs": "sharded_train",
+    "sharded_fast_embedding": "sharded_train",
     "shard_fast_bipartite": "sharded_train",
     "shard_graph": "sharded_train",
     "shard_params": "sharded_train",

@@ -12,8 +12,11 @@ called by name (``parallel/distributed.py``):
   padded with no-op arcs), each rank sums its arcs and one all-reduce adds
   the partial sums;
 - the fast step's B_ii rows are split over ``model``
-  (``edge_partition_fast.ItemBand``) and its SpMM plans over every rank
-  (``ops/spmm_sharded.py``), as :func:`shard_fast_bipartite` lays them out;
+  (``edge_partition_fast.ItemBand``), and its sparse products either run
+  on SpMM plans over every rank (``ops/spmm_sharded.py``,
+  ``shard_fast_bipartite(fast_ops=True)``) or, plan-less (JAX's default),
+  sum each direction's arcs split over ``data`` with one all-reduce
+  (:func:`shard_arcs`), as :func:`shard_fast_bipartite` lays them out;
 - the batch is whole on every rank, which computes the whole batch's loss
   (the one-device ``make_loss_fn``) over the gathered table. GSPMD splits
   the batch over ``data``; here a split would need an all-reduce of the
@@ -32,12 +35,13 @@ import dataclasses
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..graph.build import BipartiteGraph
 from ..models.lightgcn import get_embedding
 from ..ops.bipartite import (
-    ArcCsr, BipartiteSplit, FastBipartite, fast_batch_embeddings, fast_get_embedding,
+    ArcCsr, BipartiteSplit, FastBipartite, _seg_spmm, fast_batch_embeddings, fast_get_embedding,
 )
 from ..ops.spmm_sharded import ShardedFastOps, build_sharded_fast_ops, sharded_to_items, sharded_to_users
 from ..train.step import make_loss_fn, make_train_fns
@@ -137,19 +141,76 @@ def propagate_arc_shards(graph: BipartiteGraph, x: torch.Tensor, mesh: Mesh) -> 
     return _ArcShardSpmm.apply(x, graph, mesh)
 
 
+def shard_arcs(split: BipartiteSplit, out: str, mesh: Mesh) -> ArcCsr:
+    """This rank's ``data`` shard of one direction's dst-sorted arcs (``out``
+    "items": users → items; "users": items → users) as a CSR over the
+    ``n_out`` outputs plus one spare row, on the mesh's device.
+
+    As :func:`shard_graph` and the JAX package do, the arcs are padded to a
+    multiple of the ``data`` axis with no-op arcs (source 0, weight 0,
+    destination ``n_out``: the spare row, which the sum cuts) and shard
+    ``d`` keeps the padded arcs [d·E/n, (d+1)·E/n)."""
+    if out == "items":
+        src, dst, w, n_out = split.ui_src_user, split.ui_dst_item, split.ui_w, split.n_items
+    else:
+        src, dst, w, n_out = split.iu_src_item, split.iu_dst_user, split.iu_w, split.n_users
+    n, d = mesh.shape["data"], mesh.index("data")
+    e = len(w)
+    pad = (-e) % n
+    per = (e + pad) // n
+
+    def shard(x, fill):
+        x = np.concatenate([x, np.full(pad, fill, x.dtype)]) if pad else x
+        return x[d * per : (d + 1) * per]
+
+    dst_d = shard(np.asarray(dst, np.int64), n_out)
+    indptr = np.searchsorted(dst_d, np.arange(n_out + 2, dtype=np.int64))
+    put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(mesh.device)
+    return ArcCsr(put(indptr, np.int64), put(shard(np.asarray(src), 0), np.int64),
+                  put(shard(np.asarray(w, np.float32), 0), np.float32))
+
+
+def _shard_sum(x: torch.Tensor, csr: ArcCsr, mesh: Mesh) -> torch.Tensor:
+    """The whole direction's product on every rank: this rank's arcs summed
+    in f32 by the fixed-order segment sum (the spare row cut), then the
+    partial sums all-reduced over ``data``."""
+    part = _seg_spmm(x, csr)[:-1].contiguous()
+    return all_reduce_sum(part, mesh, "data")
+
+
+class _ArcShardPair(torch.autograd.Function):
+    """Forward over this rank's ``fwd`` arcs, all-reduced over ``data``;
+    backward the same over its ``bwd`` arcs, the transpose (``(Â_iu)ᵀ =
+    Â_ui``). The cotangent is the same on every rank, as ``x`` is, so every
+    rank gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, fwd: ArcCsr, bwd: ArcCsr, mesh):
+        ctx.bwd, ctx.mesh, ctx.dtype = bwd, mesh, x.dtype
+        return _shard_sum(x, fwd, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shard_sum(g, ctx.bwd, ctx.mesh).to(ctx.dtype), None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedFastBipartite:
     """The fast path laid out on a mesh: the host split, this rank's B_ii
-    band over ``model``, its SpMM plans over the whole mesh and the
-    replicated per-user CSR of the batch forward. It stands in for
-    ``ops.bipartite.FastBipartite`` in ``fast_get_embedding`` and
-    ``fast_batch_embeddings``."""
+    band over ``model``, the replicated per-user CSR of the batch forward,
+    and for the sparse products either its SpMM plans over the whole mesh
+    (``fops``) or, with ``fops`` None, this rank's ``data`` shard of each
+    direction's arcs (``item_arcs``, ``user_arcs``: :func:`shard_arcs`).
+    It stands in for ``ops.bipartite.FastBipartite`` in
+    ``fast_get_embedding`` and ``fast_batch_embeddings``."""
 
     split: BipartiteSplit
     item_op: ItemBand
-    fops: ShardedFastOps
+    fops: ShardedFastOps | None
     user_csr: ArcCsr
     mesh: Mesh
+    item_arcs: ArcCsr | None = None
+    user_arcs: ArcCsr | None = None
 
     @property
     def n_users(self) -> int:
@@ -160,9 +221,13 @@ class ShardedFastBipartite:
         return self.split.n_items
 
     def to_items(self, x_users: torch.Tensor) -> torch.Tensor:
+        if self.fops is None:
+            return _ArcShardPair.apply(x_users, self.item_arcs, self.user_arcs, self.mesh)
         return sharded_to_items(x_users, self.fops)
 
     def to_users(self, x_items: torch.Tensor) -> torch.Tensor:
+        if self.fops is None:
+            return _ArcShardPair.apply(x_items, self.user_arcs, self.item_arcs, self.mesh)
         return sharded_to_users(x_items, self.fops)
 
 
@@ -175,20 +240,22 @@ def shard_fast_bipartite(
     heavy_dtype: str = "float32",
 ) -> ShardedFastBipartite:
     """Lay ``fb`` out on ``mesh`` for this rank: B_ii's rows over ``model``
-    (a view of them), the fast SpMM plans over every rank
-    (``build_sharded_fast_ops``, with the dense heavy head replicated), the
-    per-user CSR replicated. ``fast_ops=False``, the JAX package's default
-    (its GSPMD segment-sum path), raises: the port's sharded fast path
-    always runs on plans, and every caller passes ``fast_ops=True``, as
-    JAX's driver does."""
+    (a view of them) and the per-user CSR replicated. ``fast_ops=True`` adds
+    the fast SpMM plans over every rank (``build_sharded_fast_ops``, with
+    the dense heavy head replicated), as JAX's driver asks; the default
+    ``fast_ops=False`` is the JAX package's GSPMD segment-sum path: each
+    direction's arcs split over ``data`` (:func:`shard_arcs`), summed per
+    rank and all-reduced (``msgs_dtype`` and the head are then not used)."""
+    band = place_item_op(fb.item_op, mesh)
     if not fast_ops:
-        raise NotImplementedError(
-            "shard_fast_bipartite(fast_ops=False): the GSPMD segment-sum path is not ported"
+        return ShardedFastBipartite(
+            fb.split, band, None, fb.user_csr, mesh,
+            item_arcs=shard_arcs(fb.split, "items", mesh), user_arcs=shard_arcs(fb.split, "users", mesh),
         )
     fops = build_sharded_fast_ops(
         fb.split, mesh, msgs_dtype=msgs_dtype, heavy_users=heavy_users, heavy_dtype=heavy_dtype
     )
-    return ShardedFastBipartite(fb.split, place_item_op(fb.item_op, mesh), fops, fb.user_csr, mesh)
+    return ShardedFastBipartite(fb.split, band, fops, fb.user_csr, mesh)
 
 
 class _GatherBands(torch.autograd.Function):
@@ -252,8 +319,10 @@ def make_sharded_fast_train_step(cfg, optimizer, mesh: Mesh, batch_size: int, de
     :func:`shard_fast_bipartite` and params in :func:`shard_params`' layout
     (``optimizer``: ``train.step.Adam``, updating in place). The forward is
     the batched training path (``ops.bipartite.fast_batch_embeddings``):
-    to_items by K1 on each rank's plan and one all-reduce, the B_ii chain
-    on ``model`` bands, the batch users' own arcs from the replicated CSR.
+    to_items by K1 on each rank's plan, or plan-less by the segment sum of
+    this rank's ``data`` shard of the arcs, and one all-reduce; the B_ii
+    chain on ``model`` bands; the batch users' own arcs from the replicated
+    CSR.
     ``step.on_batch(params, opt_state, sfb, users, pos, neg)`` takes a given
     batch, ``step.loss_fn(params, sfb, users, pos, neg)`` is the loss."""
     L = cfg.num_layers
@@ -285,6 +354,7 @@ __all__ = [
     "make_sharded_fast_train_step",
     "make_sharded_train_step",
     "propagate_arc_shards",
+    "shard_arcs",
     "shard_fast_bipartite",
     "shard_graph",
     "shard_params",

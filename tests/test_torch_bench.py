@@ -13,6 +13,9 @@ against root ``bench.py``, on the CPU at a tiny shape.
   time, ``projected_train_hours`` follows root ``bench.py``'s formula from
   the printed numbers, and every roofline share and floor is recomputed
   from its printed bytes, operations and rates (relative 1e-12).
+- The tiny shape runs root ``bench.py``'s bucketed candidate (its time is
+  ``forward_ms["bucketed"]``), and the roofline's ``to_items_k1`` floor is
+  the same whichever plan, bucketed or not, does the work.
 """
 import importlib.util
 import json
@@ -108,8 +111,9 @@ def test_cli_prints_one_json_line_with_root_bench_keys(line):
     s = bench.CPU_SHAPE
     assert d["graph"] == f"{s['n_users']}x{s['n_items']}, {s['n_edges']} edges, dim {s['dim']}, 4 layers"
     assert r["device"]["platform"] == "cpu" and "launches" in r
-    assert d["fast_path"] in ("plans", "segment")
-    assert d["fast_forward_ms"] == min(d["forward_ms"].values())
+    assert d["fast_path"] in ("plans", "segment", "bucketed")
+    assert set(d["forward_ms"]) == {"segment", "plans", "bucketed"}
+    assert d["fast_forward_ms"] == min(d["forward_ms"].values()) == d["forward_ms"][d["fast_path"]]
     for v in (r["value"], r["vs_baseline"], d["train_step_ms"], d["eval_s"], d["b_ii_build_s"]):
         assert np.isfinite(v) and v > 0
     assert 0.0 <= d["heldout_recall_at_20"] <= 1.0
@@ -153,3 +157,40 @@ def test_bench_needs_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main()
+
+
+def test_roofline_k1_floor_is_the_same_bucketed_or_not():
+    """``to_items_k1`` reckons the unbucketed work (each referenced user row
+    read once, each arc's index and weight once, the output written once)
+    on either path; only its measured time comes from the plan that ran."""
+    from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, init_params
+    from gnn_ecommerce_tpu_torch.ops.bipartite import (
+        FastBipartite, build_fast_ops, build_item_operator, split_graph, split_heavy_users,
+    )
+    from gnn_ecommerce_tpu_torch.ops.spmm_fast import build_bucketed_segreduce_plan
+
+    s = bench.CPU_SHAPE
+    dev = torch.device("cpu")
+    graph, _, _ = bench.build_synthetic_graph(s["n_users"], s["n_items"], s["n_edges"], device=dev)
+    split = split_graph(graph)
+    fops = build_fast_ops(split, "bfloat16", s["heavy_users"], "bfloat16", device=dev)
+    item_op = build_item_operator(split, dtype=torch.bfloat16, device=dev)
+    fb_seg = FastBipartite(split, item_op)
+    fb_plans = FastBipartite(split, item_op, fops, user_csr=fb_seg.user_csr)
+    _, _, b_src, b_dst, b_w, *_ = split_heavy_users(split, s["heavy_users"], "bfloat16", False, dev)
+    bplan = build_bucketed_segreduce_plan(b_src, b_dst, b_w, split.n_items, split.n_users,
+                                          bench.SRC_BUCKETS, device=dev)
+    params = init_params(torch.Generator().manual_seed(0),
+                         LightGCNConfig(graph.num_nodes, s["dim"], bench.LAYERS), device=dev)
+    fwd_ms = {"segment": 3.0, "plans": 2.0, "bucketed": 1.0}
+    rows = {
+        path: bench.roofline(fb_plans, fb_seg, params, bench.LAYERS, fwd_ms, 5.0, path, dev, bplan)
+        for path in ("plans", "bucketed")
+    }
+    k1 = {path: rl["phases"]["to_items_k1"] for path, rl in rows.items()}
+    for key in ("bytes_moved", "ops", "floor_ms", "arcs", "gather_bytes"):
+        assert k1["plans"][key] == k1["bucketed"][key], key
+    assert sum(b.src.numel() for b in bplan.buckets) == k1["plans"]["arcs"]
+    assert rows["bucketed"]["forward"]["parts"] == rows["plans"]["forward"]["parts"]
+    assert rows["bucketed"]["forward"]["floor_ms"] == rows["plans"]["forward"]["floor_ms"]
+    assert rows["bucketed"]["forward"]["measured_ms"] == 1.0

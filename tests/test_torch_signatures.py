@@ -28,6 +28,7 @@ import torch
 
 from gnn_ecommerce_tpu.ops import bipartite as jbip
 from gnn_ecommerce_tpu_torch.ops import bipartite as tbip
+from gnn_ecommerce_tpu_torch.ops import spmm_fast as tfast
 from torch_port_case import graphs, normal, small_arcs
 
 torch.set_num_threads(1)
@@ -46,6 +47,9 @@ DELIBERATE = {
     "ops.spmm_fast.SegReducePlan.__init__": "K1's plan: warp chunks of a CSR, no TPU tile",
     "ops.spmm_fast.build_segreduce_plan": "K1's plan has no TPU tile: no ot",
     "ops.spmm_fast.gather_segreduce": "no interpret mode: a CPU table takes the plain version",
+    "ops.spmm_fast.BucketedSegReducePlan.__init__": "its buckets are K1's plans: no TPU tile, no ot",
+    "ops.spmm_fast.build_bucketed_segreduce_plan": "its buckets are K1's plans: no TPU tile, no ot",
+    "ops.spmm_fast.gather_segreduce_bucketed": "no interpret mode: a CPU table takes the plain version",
     "ops.spmm_sharded.PlanStack.__init__": "a rank holds its own plan unpadded, not a stack",
     "ops.spmm_sharded.ShardedFastOps.__init__": "collectives by process group: no shard_map axes",
     "parallel.edge_partition.build_edge_partition": "a rank builds its own part: the mesh, not n_shards",
@@ -293,19 +297,26 @@ def test_build_fast_bipartite_signature_matches_jax(case, positional):
     ref = np.asarray(jbip.fast_get_embedding({"embedding": jnp.asarray(emb)}, jfb, 3))
     out = tbip.fast_get_embedding({"embedding": _t(emb)}, tfb, 3).numpy()
     assert np.linalg.norm(out - ref) / np.linalg.norm(ref) <= 1e-2
-    with pytest.raises(NotImplementedError, match="src_buckets"):
-        tbip.build_fast_bipartite(tgraph, torch.float32, True, "float32", 0, "float32", 2, device="cpu")
+    # src_buckets in its positional slot: 2 src buckets, f32 (2e-5 of max|ref|).
+    jfb = jbip.build_fast_bipartite(jgraph, jnp.float32, True, "float32", 0, "float32", 2)
+    tfb = tbip.build_fast_bipartite(tgraph, torch.float32, True, "float32", 0, "float32", 2, device="cpu")
+    assert len(tfb.fops.items_plan.buckets) == len(jfb.fops.items_plan.buckets) == 2
+    ref = np.asarray(jbip.fast_get_embedding({"embedding": jnp.asarray(emb)}, jfb, 3))
+    out = tbip.fast_get_embedding({"embedding": _t(emb)}, tfb, 3).numpy()
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5 * np.abs(ref).max())
 
 
 def test_build_fast_ops_src_buckets_slot(case):
+    """``src_buckets`` in JAX's positional slot, 0 and 4 (the bucketed
+    to_items plan), with a 50-user head: fast_to_items as JAX's (2e-5)."""
     _, _, _, jsplit, tsplit = case
-    jf = jbip.build_fast_ops(jsplit, "float32", 50, "float32", 0)
-    tf = tbip.build_fast_ops(tsplit, "float32", 50, "float32", 0, "cpu")
     x = normal(14, (tsplit.n_users, 6))
-    np.testing.assert_allclose(tbip.fast_to_items(_t(x), tf).numpy(),
-                               np.asarray(jbip.fast_to_items(jnp.asarray(x), jf)), rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="src_buckets"):
-        tbip.build_fast_ops(tsplit, src_buckets=4, device="cpu")
+    for buckets in (0, 4):
+        jf = jbip.build_fast_ops(jsplit, "float32", 50, "float32", buckets)
+        tf = tbip.build_fast_ops(tsplit, "float32", 50, "float32", buckets, "cpu")
+        assert isinstance(tf.items_plan, tfast.BucketedSegReducePlan) == (buckets > 0)
+        np.testing.assert_allclose(tbip.fast_to_items(_t(x), tf).numpy(),
+                                   np.asarray(jbip.fast_to_items(jnp.asarray(x), jf)), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("positional", [True, False])
@@ -421,14 +432,19 @@ def test_parallel_signatures_bind_as_jax(name, module):
     assert tsig.bind(**dict(zip(names, values))).arguments == dict(zip(names, values))
 
 
-def test_parallel_mesh_arguments_must_be_the_partitions():
+def test_parallel_mesh_arguments_must_be_the_partitions(case):
     """``pad_params`` and ``split_ep_tree`` take JAX's ``mesh``: the
     partition's own (what the port's rank-local parts were built on);
-    another raises. ``shard_fast_bipartite(fast_ops=False)``, JAX's GSPMD
-    segment path, raises."""
+    another raises. ``shard_fast_bipartite(fb, mesh)`` with JAX's default
+    ``fast_ops=False`` is JAX's GSPMD segment path: on a one-device mesh
+    its forward is JAX's (1e-5 of max|ref|); ``tests/test_torch_gspmd_segment.py``
+    holds it on two ranks."""
+    from gnn_ecommerce_tpu.parallel import make_mesh as jax_make_mesh
+    from gnn_ecommerce_tpu.parallel import shard_fast_bipartite as jax_shard_fast_bipartite
+    from gnn_ecommerce_tpu_torch.parallel import make_mesh, sharded_fast_embedding
     from gnn_ecommerce_tpu_torch.parallel.edge_partition import pad_params
     from gnn_ecommerce_tpu_torch.parallel.edge_partition_fast import split_ep_tree
-    from gnn_ecommerce_tpu_torch.parallel.sharded_train import shard_fast_bipartite
+    from gnn_ecommerce_tpu_torch.parallel.sharded_train import shard_fast_bipartite, shard_params
 
     mesh = types.SimpleNamespace(index=lambda axis: 0, shape={"model": 1})
     other = types.SimpleNamespace(index=lambda axis: 0, shape={"model": 1})
@@ -441,5 +457,15 @@ def test_parallel_mesh_arguments_must_be_the_partitions():
         pad_params({"embedding": table}, part, other)
     with pytest.raises(ValueError, match="mesh"):
         split_ep_tree({"embedding": table}, types.SimpleNamespace(mesh=mesh), other)
-    with pytest.raises(NotImplementedError, match="fast_ops=False"):
-        shard_fast_bipartite(None, mesh)
+    _, jgraph, tgraph, _, _ = case
+    emb = normal(17, (jgraph.num_nodes, 8))
+    jmesh = jax_make_mesh(1)
+    with jmesh:
+        ref = np.asarray(jbip.fast_get_embedding(
+            {"embedding": jnp.asarray(emb)}, jax_shard_fast_bipartite(jbip.build_fast_bipartite(jgraph), jmesh), 3
+        ))
+    tmesh = make_mesh(1, device="cpu")
+    sfb = shard_fast_bipartite(tbip.build_fast_bipartite(tgraph, device="cpu"), tmesh)
+    assert sfb.fops is None
+    out = sharded_fast_embedding(shard_params({"embedding": _t(emb)}, tmesh), sfb, 3).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())

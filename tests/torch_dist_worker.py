@@ -291,7 +291,59 @@ def _job_driver(c, mesh_default):
     return out
 
 
-_JOBS = {"spmm": _job_spmm, "parallel": _job_parallel, "train": _job_train, "driver": _job_driver}
+# The GSPMD segment-sum path (tests/test_torch_gspmd_segment.py): mesh name
+# -> axis sizes (data, model) in a world of 2.
+SEGMENT_MESHES = {"data2": (2, 1), "model2": (1, 2)}
+
+
+def _job_gspmd_segment(c, mesh_default):
+    """``shard_fast_bipartite(fb, mesh)`` with JAX's default ``fast_ops=False``
+    on each mesh of SEGMENT_MESHES: ``sharded_fast_embedding``, then one
+    step of ``make_sharded_fast_train_step`` on the case's fixed batch from
+    its table (metrics, the unsharded table and Adam's moments, the band)."""
+    import torch
+
+    from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig
+    from gnn_ecommerce_tpu_torch.ops.bipartite import build_fast_bipartite
+    from gnn_ecommerce_tpu_torch.parallel import (
+        make_mesh, make_sharded_fast_train_step, shard_fast_bipartite, shard_params,
+        sharded_fast_embedding,
+    )
+    from gnn_ecommerce_tpu_torch.parallel.sharded_train import unshard_params
+    from gnn_ecommerce_tpu_torch.train.step import Adam
+
+    g, _ = _graph_split(c)
+    cfg = LightGCNConfig(g.num_nodes, int(c["dim"]), int(c["layers"]))
+    lr, decay, B, cap = float(c["lr"]), float(c["decay"]), int(c["batch"]), int(c["edge_cap"])
+    fb = build_fast_bipartite(g, device="cpu")
+    table = torch.from_numpy(c["params"])
+    out = {}
+    for name, sizes in SEGMENT_MESHES.items():
+        mesh = make_mesh(mesh_default.size, axis_sizes=sizes, device="cpu")
+        sfb = shard_fast_bipartite(fb, mesh)
+        assert sfb.fops is None
+        out[f"{name}_arcs"] = np.array([sfb.item_arcs.src.numel(), sfb.user_arcs.src.numel()])
+        params = shard_params({"embedding": table.clone()}, mesh)
+        with torch.no_grad():
+            out[f"{name}_embed"] = sharded_fast_embedding(params, sfb, cfg.num_layers).numpy()
+        step = make_sharded_fast_train_step(cfg, Adam(lr), mesh, B, decay, cap)
+        opt = Adam(lr).init(params)
+        users, pos, neg = (torch.from_numpy(c[k]) for k in ("users0", "pos0", "neg0"))
+        _, _, m = step.on_batch(params, opt, sfb, users, pos, neg)
+        out[f"{name}_metrics"] = np.array(
+            [float(m[k]) for k in ("loss", "bpr_loss", "reg_loss", "dropped_arcs")]
+        )
+        view_p, view_o = unshard_params(params, mesh, g.num_nodes), unshard_params(opt, mesh, g.num_nodes)
+        out[f"{name}_emb"] = view_p["embedding"].numpy()
+        out[f"{name}_mu"] = view_o.exp_avg["embedding"].numpy()
+        out[f"{name}_band"] = torch.stack(
+            [params["embedding"], opt.exp_avg["embedding"], opt.exp_avg_sq["embedding"]]
+        ).numpy()
+    return out
+
+
+_JOBS = {"spmm": _job_spmm, "parallel": _job_parallel, "train": _job_train, "driver": _job_driver,
+         "gspmd_segment": _job_gspmd_segment}
 
 
 def _rank_main(job, rank, world, store, case, out_dir):
