@@ -20,8 +20,13 @@ Phases, one printed line each (plus detail lines):
               (the service's run) and in bf16 over the tail left by the
               16,384-user head (the main configuration's run) on the table
               cast into 16-byte rows by K1's cast kernel, each launched twice
-              for equal bytes, with per-pass device times; K1 on edge-case
-              plans (empty rows, a 2,000-chunk hub) at D 1 to 256 on f32,
+              for equal bytes, with per-pass device times, and timed beside
+              the unpacked chunk layout (every row in chunks of its own);
+              K1 by shortness limit (check_short_rows: 0, 8, 16, 32, 64) on
+              those plans and on the users-side plans of all arcs (f32) and
+              of the tail (bf16), beside torch.sparse.mm and the bound; K1
+              on edge-case plans (empty rows, a 2,000-chunk hub, runs of
+              short rows in packed chunks) at D 1 to 256 on f32,
               bf16 and padded bf16 tables, and through gather_segreduce on
               expanded, transposed and misaligned f32 tables; the stream
               sum (K3) over K1's bf16 tail messages; kernel, plain and
@@ -32,7 +37,8 @@ Phases, one printed line each (plus detail lines):
               (gather_segreduce_bucketed, 8 and 16 source ranges of the
               bf16 tail plan: one K1 launch, then one accumulate launch
               per later bucket) against the unbucketed K1 and its plain
-              version, timed beside the unbucketed K1 and its bound
+              version, timed beside its unpacked layout, the unbucketed K1
+              and its bound
   4 forward   the RecommenderService (dim 90, 5 layers, f32) propagates once
               through the fast forward; its cache is held against the layered
               get_embedding on the card; forward time and a profiler breakdown
@@ -67,9 +73,10 @@ Phases, one printed line each (plus detail lines):
               make_sharded_eval_fn on the val split (P and R within 1e-6
               relative of evaluate / evaluate_bucketed, ids equal); then, one
               rank at a time, K1 at each rank's to_items and to_users shapes
-              in f32 and bf16 against its plain version, with kernel, plain
-              and torch.sparse.mm times, the bound and ell_apply's time on
-              the same to_users arcs
+              in f32 and bf16 against its plain version, in the packed and
+              the unpacked chunk layout (each one's chunks and kernel time),
+              with plain and torch.sparse.mm times, the bound and
+              ell_apply's time on the same to_users arcs
   7 grad      on one fixed batch of 1024, the exact fast batched loss's
               gradient and the full fast forward's loss gradient (K1 runs in
               fast_to_users' backward) against the layered loss's gradient,
@@ -258,6 +265,9 @@ from gnn_ecommerce_tpu_torch.ops.bipartite import (
     split_heavy_users,
 )
 from gnn_ecommerce_tpu_torch.ops.spmm_fast import (
+    SHORT_ROW_ARCS,
+    _bucketed_plan,
+    _segreduce_plan,
     bf16_row_width,
     bf16_rows,
     bf16_rows_plain,
@@ -358,6 +368,11 @@ ACCUMULATE = {"segreduce_f32": "float32_accumulate", "segreduce_bf16": "bfloat16
 # bench.SRC_BUCKETS (K1 launches a call: one, then one accumulate per later
 # bucket).
 BUCKET_COUNTS = (8, 16)
+# K1's shortness limits timed side by side in phase 3 (check_short_rows;
+# 0: the unpacked layout, every row in chunks of its own): the choice of
+# spmm_fast.SHORT_ROW_ARCS. Every plan of the port has chunks of K1_CH arcs.
+SHORT_ROW_SWEEP = (0, 8, 16, 32, 64)
+K1_CH = 256
 # The to_users row shares K2's bf16 counter with the row above: its launches
 # are the ones made in these sections of probes/proto_segreduce.py's main,
 # and the row above keeps the rest.
@@ -606,10 +621,11 @@ def device_profile(label: str, fn, top: int = 6) -> None:
 
 
 def pass_times(fn, names: dict, label: str = "", calls: int = 5, attempts: int = 3,
-               per_call: int = 1) -> dict | None:
+               per_call: int | dict = 1) -> dict | None:
     """Device ms per call of each pass of ``fn``, over ``calls`` calls under
     torch.profiler. ``names`` maps a key of each pass's kernel symbol to the
-    pass's short name; every pass launches ``per_call`` times a call. None
+    pass's short name; every pass launches ``per_call`` times a call (a dict:
+    each short name's own count). None
     unless, in one of ``attempts`` fresh profiles, the profiler recorded
     each pass exactly ``calls · per_call`` times and no other kernel: it has
     dropped kernels before, and a missing launch is not made up (a printed
@@ -631,27 +647,100 @@ def pass_times(fn, names: dict, label: str = "", calls: int = 5, attempts: int =
             short = next((s for key, s in names.items() if key in e.key), e.key[:60])
             ms[short] = ms.get(short, 0.0) + e.self_device_time_total / 1e3
             counts[short] = counts.get(short, 0) + e.count
-        if counts == {short: calls * per_call for short in names.values()}:
+        if counts == {short: calls * (per_call[short] if isinstance(per_call, dict) else per_call)
+                      for short in names.values()}:
             return {short: total / calls for short, total in ms.items()}
     print(f"  {label} passes not measured: launches recorded in {calls} calls {counts} (the last of "
-          f"{attempts} profiles), expected each of {sorted(names.values())} {calls * per_call} times",
+          f"{attempts} profiles), expected {calls} calls of {per_call} launches of {sorted(names.values())}",
           flush=True)
     return None
 
 
 def plan_stats(plan) -> dict:
-    """The chunk layout's shape: chunks, the most chunks (and arcs) of one
-    row, and the rows that have more than one chunk."""
-    per_row = torch.diff(plan.row_chunk_ptr)
+    """The chunk layout's shape: chunks (and those packed with several short
+    rows), the most chunks (and arcs) of one row, and the rows that have
+    more than one chunk."""
+    per_row = plan.row_chunks
     arcs = torch.bincount(plan.dst, minlength=plan.n_out)
     return {
         "n_chunks": plan.n_chunks,
+        "packed_chunks": plan.n_packed,
         "max_chunks_per_row": int(per_row.max()),
         "max_arcs_per_row": int(arcs.max()),
         "multi_chunk_rows": int((per_row > 1).sum()),
         "empty_rows": int((arcs == 0).sum()),
         "long_rows": plan.n_long,
     }
+
+
+def repack(plan, short_arcs: int, ch: int = K1_CH):
+    """The plan's arcs in the layout of another shortness limit (0: the
+    unpacked layout), on the plan's device."""
+    return _segreduce_plan(plan.src.cpu().numpy(), plan.dst.cpu().numpy(), plan.w.cpu().numpy(),
+                           plan.n_out, ch, plan.src.device, short_arcs)
+
+
+def k1_pass_names(plan) -> dict:
+    """pass_times' names of K1's passes over ``plan``: the chunk pass runs
+    when the plan has chunks, the combine when some row has no chunk or
+    several."""
+    names = {"chunks": plan.n_chunks > 0, "combine": plan.comb_rows.numel() > 0}
+    return {key: key for key, runs in names.items() if runs}
+
+
+def k1_bucket_passes(bplan) -> tuple[dict, dict]:
+    """pass_times' names and launches a call of K1's passes over every
+    bucket of ``bplan``."""
+    launches = {}
+    for p in bplan.buckets:
+        for key in k1_pass_names(p):
+            launches[key] = launches.get(key, 0) + 1
+    return {key: key for key in launches}, launches
+
+
+def hold_k1(table: torch.Tensor, plan, ref: torch.Tensor, label: str) -> torch.Tensor:
+    """K1 over ``plan`` against ``ref`` (the plain version's result on the
+    same arcs) at check_kernel's tolerance, the same bytes from a second
+    launch; returns K1's result."""
+    out = SEGREDUCE(table, plan)
+    assert torch.equal(out, SEGREDUCE(table, plan)), f"{label}: two launches gave different bytes"
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * ref.abs().max().item(),
+                               msg=lambda m: f"{label}: {m}")
+    return out
+
+
+def check_short_rows(label: str, table: torch.Tensor, plan) -> dict:
+    """K1 over ``plan``'s arcs in the layout of each shortness limit of
+    SHORT_ROW_SWEEP, each held to the plain version (hold_k1), then timed
+    one after the other with each pass's device time, beside
+    torch.sparse.mm on the same arcs and the input-once bound: the
+    measurement behind spmm_fast.SHORT_ROW_ARCS."""
+    ref = segreduce_plain(table, plan)
+    res = {}
+    for limit in SHORT_ROW_SWEEP:
+        p = plan if limit == SHORT_ROW_ARCS else repack(plan, limit)
+        hold_k1(table, p, ref, f"{label} limit {limit}")
+        res[str(limit)] = {"chunks": p.n_chunks, "packed_chunks": p.n_packed,
+                           "ms": time_ms(lambda: SEGREDUCE(table, p)),
+                           "pass_ms": pass_times(lambda: SEGREDUCE(table, p), k1_pass_names(p),
+                                                 f"{label} limit {limit}")}
+        del p
+    del ref
+    bytes_once, _, flops = k1_bytes(table, plan)
+    csr, dense = sparse_csr(plan, table), table.contiguous()
+    row = {"arcs": plan.src.numel(), "n_out": plan.n_out, "limits": res,
+           "library_ms": time_ms(lambda: torch.sparse.mm(csr, dense)),
+           "bound_ms": max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3}
+    del csr, dense
+    print(
+        f"  {label} K1 by shortness limit ({row['arcs']} arcs into {row['n_out']} rows; limit: "
+        "chunks / packed / ms / device ms by pass): "
+        + "; ".join(f"{k} {v['chunks']} / {v['packed_chunks']} / {v['ms']:.4f} / {v['pass_ms']}"
+                    for k, v in res.items())
+        + f"; library_ms (torch.sparse.mm) {row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f}",
+        flush=True,
+    )
+    return row
 
 
 def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
@@ -675,12 +764,19 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
     ref64.index_add_(0, plan.dst, table.index_select(0, plan.src).double() * w64[:, None])
     f64_kernel = (out.double() - ref64).abs().max().item()
     f64_plain = (ref.double() - ref64).abs().max().item()
+    # The unpacked layout of the same arcs, held and timed beside it.
+    flat = repack(plan, 0)
+    hold_k1(table, flat, ref, f"{name} unpacked")
     del out, ref, ref64
     n_arcs = plan.src.numel()
     rows_read = torch.unique(plan.src).numel()
     bytes_once, bytes_gather, flops = k1_bytes(table, plan)
     bound_ms = max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    # Packed, unpacked, unpacked, packed: each layout's two times bracket
+    # the other's.
     kernel_ms = time_ms(lambda: SEGREDUCE(table, plan))
+    unpacked_runs = [time_ms(lambda: SEGREDUCE(table, flat)) for _ in range(2)]
+    kernel_runs = [kernel_ms, time_ms(lambda: SEGREDUCE(table, plan))]
     # Five calls back to back: the launch gap of one call is hidden.
     back_to_back_ms = time_ms(lambda: [SEGREDUCE(table, plan) for _ in range(5)]) / 5
     plain_ms = time_ms(lambda: segreduce_plain(table, plan))
@@ -698,13 +794,15 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
         del csr16, dense16
     print(f"  {name} plan: {json.dumps(plan_stats(plan))} vector width {SEGREDUCE.vector_width(table)} "
           f"row stride {table.stride(0)}", flush=True)
-    k1_names = {"chunks": "chunks", "combine": "combine"} if plan.comb_rows.numel() else {"chunks": "chunks"}
-    passes = named_passes(name, lambda: SEGREDUCE(table, plan), k1_names)
+    passes = named_passes(name, lambda: SEGREDUCE(table, plan), k1_pass_names(plan))
+    unpacked_passes = named_passes(f"{name} unpacked", lambda: SEGREDUCE(table, flat), k1_pass_names(flat))
     print(
-        f"  {name}: arcs {n_arcs} chunks {plan.n_chunks} rows_read {rows_read} "
+        f"  {name}: arcs {n_arcs} chunks {plan.n_chunks} ({plan.n_packed} packed; unpacked "
+        f"{flat.n_chunks}) rows_read {rows_read} "
         f"max_abs_err {err:.3e} (max |ref| {scale:.3e}, check margin {margin:.3f}; "
         f"vs f64: kernel {f64_kernel:.3e} plain {f64_plain:.3e}) equal bytes on a second launch; "
-        f"kernel_ms {kernel_ms:.4f} back_to_back_ms {back_to_back_ms:.4f} "
+        f"kernel_ms {kernel_runs[0]:.4f} {kernel_runs[1]:.4f} unpacked_ms {unpacked_runs[0]:.4f} "
+        f"{unpacked_runs[1]:.4f} back_to_back_ms {back_to_back_ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} ({library_call}; f32 {library_f32_ms:.4f}) "
         f"bytes_once {bytes_once} bytes_gather {bytes_gather} bound_ms {bound_ms:.4f} "
         f"gather_bound_ms {bytes_gather / HBM_BYTES_PER_S * 1e3:.4f}",
@@ -728,6 +826,10 @@ def check_kernel(name: str, table: torch.Tensor, plan) -> dict:
         "pass_ms": passes,
         "gather_bound_ms": bytes_gather / HBM_BYTES_PER_S * 1e3,
         "arcs": n_arcs,
+        "n_chunks": plan.n_chunks,
+        "packed_chunks": plan.n_packed,
+        "ms_runs": kernel_runs,
+        "unpacked": {"n_chunks": flat.n_chunks, "ms_runs": unpacked_runs, "pass_ms": unpacked_passes},
     }
 
 
@@ -766,22 +868,64 @@ def check_cast(table: torch.Tensor) -> dict:
     return row
 
 
+def short_row_runs(rng: np.random.Generator, ch: int) -> list:
+    """Row sizes of runs of short rows (spmm_fast.SHORT_ROW_ARCS), each
+    between two rows one arc too long to pack: rows of 1 to 12 arcs with
+    empty rows inside, a run of exactly ch arcs and one of ch + 1, in rows
+    of the limit's length (at CH 256 the first fills one packed chunk of
+    PACKED_ROWS rows, the second takes two)."""
+    limit = min(SHORT_ROW_ARCS, ch)
+    cut = [limit + 1]
+
+    def run(total):
+        return [limit] * (total // limit) + [total % limit] * (total % limit > 0)
+
+    mixed = [int(n) for n in rng.integers(1, min(12, limit) + 1, 400)]
+    for at in (7, 8, 100, 250, 399):  # two empty rows in a row, then single ones
+        mixed.insert(at, 0)
+    return cut + mixed + cut + run(ch) + cut + run(ch + 1) + cut
+
+
 def k1_case_plan(rng: np.random.Generator, ch: int, n_src: int, dev):
     """Rows the main path's plans may not have: empty ones (first, middle,
     last), one arc, exactly ch and ch + 1 arcs, a hub of more than 2,000
-    chunks, and rows of random length up to 3·ch."""
+    chunks, rows of random length up to 3·ch, and runs of short rows
+    (short_row_runs)."""
     hub = 2000 * ch + 7
-    sizes = [0, 1, ch, ch + 1, 0, hub, 2, 0] + list(rng.integers(0, 3 * ch, 300)) + [0]
+    sizes = ([0, 1, ch, ch + 1, 0, hub, 2, 0] + list(rng.integers(0, 3 * ch, 300))
+             + short_row_runs(rng, ch) + [0])
     dst = np.repeat(np.arange(len(sizes)), sizes)
     src = rng.integers(0, n_src, len(dst)).astype(np.int32)
     w = rng.random(len(dst)).astype(np.float32) / 512
     return build_segreduce_plan(src, dst, w, len(sizes), ch=ch, device=dev)
 
 
+def hold_f64(out: torch.Tensor, ref: torch.Tensor, table: torch.Tensor, plan, label: str,
+             prev: torch.Tensor | None = None) -> None:
+    """K1's ``out`` against an f64 sum of the same products (plus ``prev``)
+    at check_kernel's tolerance, and against ``ref``, the plain version's
+    result, at that tolerance plus the plain version's own distance from the
+    f64 sum: index_add_ adds a hub row's 600,007 f32 terms in no fixed
+    order, and its own rounding there reaches the tolerance (8.4e-5 against
+    5.0e-5 in a D 250 bf16 hub row of 512,007 arcs; 8.9e-6 against 8.0e-7
+    in a D 1 f32 hub row of 600,007)."""
+    w64 = (plan.w if table.dtype == torch.float32 else plan.w.to(torch.bfloat16)).double()
+    ref64 = torch.zeros(plan.n_out, table.shape[1], dtype=torch.float64, device=table.device)
+    ref64.index_add_(0, plan.dst, table.index_select(0, plan.src).double() * w64[:, None])
+    if prev is not None:
+        ref64 += prev.double()
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(out.double(), ref64, rtol=1e-4, atol=1e-5 * scale,
+                               msg=lambda m: f"{label} vs f64: {m}")
+    allowed = 1e-4 * ref.abs() + 1e-5 * scale + (ref.double() - ref64).abs()
+    assert bool(((out - ref).abs() <= allowed).all()), f"{label}: kernel and plain version differ"
+
+
 def check_kernel_cases(dev: torch.device, seed: int) -> None:
     """K1 on plans and tables the main path does not give it, against its
-    plain version with check_kernel's tolerance: the rows of k1_case_plan at
-    CH 256, 300 (two index windows a chunk) and 32, D from 1 to 256 on f32
+    plain version and an f64 sum (hold_f64): the rows of k1_case_plan
+    (runs of short rows among them, in packed chunks) at CH 256, 300 (two
+    index windows a chunk) and 32, D from 1 to 256 on f32
     tables and on bf16 ones both contiguous and padded to 16-byte rows
     (bf16_rows, its bytes held to the plain cast), which between them take
     every vector width and loads-per-arc instance of the kernel; each
@@ -792,7 +936,8 @@ def check_kernel_cases(dev: torch.device, seed: int) -> None:
     for ch in (256, 300, 32):
         plan = k1_case_plan(rng, ch, n_src, dev)
         stats = plan_stats(plan)
-        assert stats["max_chunks_per_row"] > 2000 and stats["empty_rows"] >= 4, stats
+        assert stats["max_chunks_per_row"] > 2000 and stats["empty_rows"] >= 8, stats
+        assert stats["packed_chunks"] >= 2, stats
         for d in K1_CASE_DIMS:
             x = torch.randn(n_src, d, generator=gen, device=dev)
             width = bf16_row_width(d)
@@ -804,10 +949,8 @@ def check_kernel_cases(dev: torch.device, seed: int) -> None:
             for label, table in (("f32", x), ("bf16", x.to(torch.bfloat16)), ("bf16 padded", bf16_rows(x))):
                 out = SEGREDUCE(table, plan)
                 assert torch.equal(out, SEGREDUCE(table, plan)), (ch, d, label)
-                ref = segreduce_plain(table, plan)
-                scale = ref.abs().max().item()
-                torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
-                assert not out[plan.row_chunk_ptr[1:] == plan.row_chunk_ptr[:-1]].any(), "empty rows"
+                hold_f64(out, segreduce_plain(table, plan), table, plan, f"cases CH {ch} D {d} {label}")
+                assert not out[plan.row_chunks == 0].any(), "empty rows"
         print(f"  K1 cases CH {ch}: {json.dumps(stats)}; D {K1_CASE_DIMS}, f32, bf16, bf16 padded: held",
               flush=True)
     # f32 tables of other layouts through gather_segreduce in both modes
@@ -834,9 +977,10 @@ def check_kernel_cases(dev: torch.device, seed: int) -> None:
 
 def check_accumulate_cases(dev: torch.device, seed: int) -> None:
     """K1's accumulate mode against ``segreduce_plain(prev=)`` and an f64
-    sum of the same products with check_kernel's tolerance (``hold``), from
+    sum of the same products (hold_f64), from
     a random ``prev``: k1_case_plan's rows
-    (empty ones, a 2,000-chunk hub) at CH 256 and 32 on f32, bf16 and padded
+    (empty ones, a 2,000-chunk hub, runs of short rows in packed chunks) at
+    CH 256 and 32 on f32, bf16 and padded
     bf16 tables at every width of K1_CASE_DIMS; a plan with no arc (an empty
     bucket, on a table of 0 rows and of 1); a plan whose every arc lands in
     one hub row. Rows with no arc keep ``prev``'s bits; two launches give
@@ -849,23 +993,8 @@ def check_accumulate_cases(dev: torch.device, seed: int) -> None:
         prev = torch.randn(plan.n_out, table.shape[1], generator=gen, device=dev)
         out = SEGREDUCE(table, plan, prev.clone())
         assert torch.equal(out, SEGREDUCE(table, plan, prev.clone())), label
-        ref = segreduce_plain(table, plan, prev)
-        # The same products summed in f64: the plain version's index_add_
-        # adds a hub row's 512,007 f32 terms in no fixed order, and its own
-        # rounding there reaches the tolerance (8.4e-5 against 5.0e-5 in a
-        # D 250 bf16 hub row), so the kernel is held to the f64 sum at the
-        # plain mode's tolerance, and to the plain version at that
-        # tolerance plus the plain version's own distance from the f64 sum.
-        w64 = (plan.w if table.dtype == torch.float32 else plan.w.to(torch.bfloat16)).double()
-        ref64 = torch.zeros(plan.n_out, table.shape[1], dtype=torch.float64, device=dev)
-        ref64.index_add_(0, plan.dst, table.index_select(0, plan.src).double() * w64[:, None])
-        ref64 += prev.double()
-        scale = ref.abs().max().item()
-        torch.testing.assert_close(out.double(), ref64, rtol=1e-4, atol=1e-5 * scale,
-                                   msg=lambda m: f"{label} vs f64: {m}")
-        allowed = 1e-4 * ref.abs() + 1e-5 * scale + (ref.double() - ref64).abs()
-        assert bool(((out - ref).abs() <= allowed).all()), f"{label}: kernel and plain version differ"
-        empty = plan.row_chunk_ptr[1:] == plan.row_chunk_ptr[:-1]
+        hold_f64(out, segreduce_plain(table, plan, prev), table, plan, label, prev)
+        empty = plan.row_chunks == 0
         assert torch.equal(out[empty], prev[empty]), f"{label}: a row with no arc changed"
 
     hub_arcs = 2000 * 256 + 7
@@ -896,9 +1025,10 @@ def check_bucketed(label: str, table16: torch.Tensor, plan, tail: tuple, n_src: 
     """``gather_segreduce_bucketed`` on the bf16 table over ``tail``'s arcs
     (src, dst, w) cut into ``n_buckets`` source ranges, against the
     unbucketed K1 over ``plan`` (the same arcs) and against its plain
-    version (check_kernel's tolerance); K1 launches a call (one, then one
-    accumulate a later bucket); times of both beside the unbucketed input-
-    once bound (k1_bytes), which reckons the same work."""
+    version (check_kernel's tolerance), the same bytes from a second call;
+    K1 launches a call (one, then one accumulate a later bucket); the same
+    buckets in the unpacked layout held too; times of all three beside the
+    unbucketed input-once bound (k1_bytes), which reckons the same work."""
     t0 = time.perf_counter()
     bplan = build_bucketed_segreduce_plan(*tail, plan.n_out, n_src, n_buckets, device=table16.device)
     build_s = time.perf_counter() - t0
@@ -906,6 +1036,9 @@ def check_bucketed(label: str, table16: torch.Tensor, plan, tail: tuple, n_src: 
     out = gather_segreduce_bucketed(table16, bplan, torch.bfloat16)
     launched = {m: SEGREDUCE.launches[m] - before[m] for m in ("bfloat16", "bfloat16_accumulate")}
     assert launched == {"bfloat16": 1, "bfloat16_accumulate": n_buckets - 1}, launched
+    assert torch.equal(out, gather_segreduce_bucketed(table16, bplan, torch.bfloat16)), label
+    flat = _bucketed_plan(*tail, plan.n_out, n_src, n_buckets, K1_CH, table16.device, 0)
+    out_flat = gather_segreduce_bucketed(table16, flat, torch.bfloat16)
     ref = SEGREDUCE(table16, plan)
 
     def plain_passes():
@@ -919,30 +1052,53 @@ def check_bucketed(label: str, table16: torch.Tensor, plan, tail: tuple, n_src: 
     err = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
     torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(out_flat, plain, rtol=1e-4, atol=1e-5 * scale)
     err_plain = (out - plain).abs().max().item()
-    del out, ref, plain
+    # The buckets at each shortness limit of SHORT_ROW_SWEEP, held and timed.
+    limits = {}
+    for limit in SHORT_ROW_SWEEP:
+        bp = {SHORT_ROW_ARCS: bplan, 0: flat}.get(limit) or _bucketed_plan(
+            *tail, plan.n_out, n_src, n_buckets, K1_CH, table16.device, limit)
+        got = gather_segreduce_bucketed(table16, bp, torch.bfloat16)
+        torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-5 * scale)
+        limits[str(limit)] = {"chunks": sum(p.n_chunks for p in bp.buckets),
+                              "packed_chunks": sum(p.n_packed for p in bp.buckets),
+                              "ms": time_ms(lambda: gather_segreduce_bucketed(table16, bp, torch.bfloat16))}
+        del bp, got
+    del out, out_flat, ref, plain
     bytes_once, bytes_gather, flops = k1_bytes(table16, plan)
     bound_ms = max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
     ms = time_ms(lambda: gather_segreduce_bucketed(table16, bplan, torch.bfloat16))
+    unpacked_ms = time_ms(lambda: gather_segreduce_bucketed(table16, flat, torch.bfloat16))
     unbucketed_ms = time_ms(lambda: SEGREDUCE(table16, plan))
     plain_ms = time_ms(plain_passes, reps=3)
     sub_mb = max(hi - lo for lo, hi in bplan.spans) * table16.stride(0) * table16.element_size() / 1e6
-    passes = pass_times(lambda: gather_segreduce_bucketed(table16, bplan, torch.bfloat16),
-                        {"chunks": "chunks", "combine": "combine"}, f"{label} {n_buckets} buckets",
-                        per_call=n_buckets)
+    names, per_call = k1_bucket_passes(bplan)
+    passes = pass_times(lambda: gather_segreduce_bucketed(table16, bplan, torch.bfloat16), names,
+                        f"{label} {n_buckets} buckets", per_call=per_call)
+    names, per_call = k1_bucket_passes(flat)
+    unpacked_passes = pass_times(lambda: gather_segreduce_bucketed(table16, flat, torch.bfloat16), names,
+                                 f"{label} {n_buckets} buckets unpacked", per_call=per_call)
     row = {
         "n_buckets": n_buckets, "launches_per_call": n_buckets, "max_abs_err": err,
         "max_abs_err_vs_plain": err_plain, "ms": ms, "unbucketed_ms": unbucketed_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "gather_bound_ms": bytes_gather / HBM_BYTES_PER_S * 1e3,
         "chunks": sum(p.n_chunks for p in bplan.buckets), "unbucketed_chunks": plan.n_chunks,
         "sub_table_mb": sub_mb, "build_s": build_s, "pass_ms": passes,
+        "packed_chunks": sum(p.n_packed for p in bplan.buckets),
+        "unpacked": {"chunks": sum(p.n_chunks for p in flat.buckets), "ms": unpacked_ms,
+                     "pass_ms": unpacked_passes},
+        "limits": limits,
     }
     print(
         f"  {label} bucketed K1 bf16, {n_buckets} buckets ({n_buckets} launches a call, largest "
-        f"sub-table {sub_mb:.1f} MB, chunks {row['chunks']} vs {plan.n_chunks}, build {build_s:.2f} s): "
+        f"sub-table {sub_mb:.1f} MB, chunks {row['chunks']} ({row['packed_chunks']} packed; unpacked "
+        f"{row['unpacked']['chunks']}) vs {plan.n_chunks}, build {build_s:.2f} s): "
         f"max_abs_err {err:.3e} vs unbucketed K1 (max |ref| {scale:.3e}), {err_plain:.3e} vs plain; "
-        f"ms {ms:.4f} unbucketed_ms {unbucketed_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-        f"gather_bound_ms {row['gather_bound_ms']:.4f}; device ms a call by pass {passes}",
+        f"ms {ms:.4f} unpacked_ms {unpacked_ms:.4f} unbucketed_ms {unbucketed_ms:.4f} plain_ms "
+        f"{plain_ms:.4f} bound_ms {bound_ms:.4f} gather_bound_ms {row['gather_bound_ms']:.4f}; device "
+        f"ms a call by pass {passes} (unpacked {unpacked_passes}); by shortness limit (chunks / packed / "
+        "ms): " + "; ".join(f"{k} {v['chunks']} / {v['packed_chunks']} / {v['ms']:.4f}" for k, v in limits.items()),
         flush=True,
     )
     return row
@@ -1886,26 +2042,30 @@ def ell_of_plan(plan, dev) -> object:
 
 def check_rank_k1(name: str, table: torch.Tensor, plan, ell_table: torch.Tensor | None = None) -> dict:
     """K1 at one rank's shapes against its plain version (phase 3's bound),
-    with kernel, plain and torch.sparse.mm times and the bound; for a
-    to_users plan also ell_apply's time on the same arcs (``ell_table``)."""
-    out = SEGREDUCE(table, plan)
+    in the packed layout and the unpacked one (hold_k1), with both layouts'
+    chunks and kernel times, plain and torch.sparse.mm times and the bound;
+    for a to_users plan also ell_apply's time on the same arcs
+    (``ell_table``)."""
     ref = segreduce_plain(table, plan)
+    out = hold_k1(table, plan, ref, name)
     scale = ref.abs().max().item()
     err = (out - ref).abs().max().item()
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
+    flat = repack(plan, 0)
+    hold_k1(table, flat, ref, f"{name} unpacked")
     del ref
     bytes_once, bytes_gather, flops = k1_bytes(table, plan)
     csr, dense = sparse_csr(plan, table), table.contiguous()
     row = {
         "arcs": plan.src.numel(), "n_out": plan.n_out, "table_rows": table.shape[0],
-        "n_chunks": plan.n_chunks, "max_abs_err": err,
+        "n_chunks": plan.n_chunks, "packed_chunks": plan.n_packed, "max_abs_err": err,
         "ms": time_ms(lambda: SEGREDUCE(table, plan)),
+        "unpacked_chunks": flat.n_chunks, "unpacked_ms": time_ms(lambda: SEGREDUCE(table, flat)),
         "plain_ms": time_ms(lambda: segreduce_plain(table, plan), reps=5),
         "library_ms": time_ms(lambda: torch.sparse.mm(csr, dense)),
         "bound_ms": max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
         "gather_bound_ms": bytes_gather / HBM_BYTES_PER_S * 1e3,
     }
-    del csr, dense
+    del csr, dense, flat
     if ell_table is not None:
         ell = ell_of_plan(plan, table.device)
         gather = torch.bfloat16 if table.dtype == torch.bfloat16 else None
@@ -1920,7 +2080,9 @@ def check_rank_k1(name: str, table: torch.Tensor, plan, ell_table: torch.Tensor 
     del out
     print(
         f"  {name}: arcs {row['arcs']} into {row['n_out']} rows from {row['table_rows']}, chunks "
-        f"{row['n_chunks']}; max_abs_err {err:.3e} (max |ref| {scale:.3e}); kernel_ms {row['ms']:.4f} "
+        f"{row['n_chunks']} ({row['packed_chunks']} packed; unpacked {row['unpacked_chunks']}); "
+        f"max_abs_err {err:.3e} (max |ref| {scale:.3e}); kernel_ms {row['ms']:.4f} unpacked_ms "
+        f"{row['unpacked_ms']:.4f} "
         f"plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
         f"{row['bound_ms']:.4f} gather_bound_ms {row['gather_bound_ms']:.4f}"
         + (f" ell_apply_ms {row['ell_apply_ms']:.4f}" if "ell_apply_ms" in row else ""),
@@ -2691,16 +2853,37 @@ def main(argv=None) -> int:
             split.ui_src_user, split.ui_dst_item, split.ui_w, split.n_items, device=dev
         )
         rows = [check_kernel("segreduce_f32", E_u, full_plan)]
-        del full_plan
         check_kernel_cases(dev, args.seed)
         check_accumulate_cases(dev, args.seed)
-        _, w_hi, t_src, t_dst, t_w, *_ = split_heavy_users(split, HEAVY_USERS, "bfloat16", device=dev)
+        _, w_hi, t_src, t_dst, t_w, t_iu_indptr, t_iu_src, t_iu_w, _ = split_heavy_users(
+            split, HEAVY_USERS, "bfloat16", device=dev
+        )
         del w_hi
         tail_plan = build_segreduce_plan(t_src, t_dst, t_w, split.n_items, device=dev)
         # The main path's bf16 table: gather_segreduce's cast into 16-byte rows.
         rows.append(check_cast(E_u))
         E_u16 = bf16_rows(E_u)
         rows.append(check_kernel("segreduce_bf16", E_u16, tail_plan))
+        # K1 by shortness limit, the choice of SHORT_ROW_ARCS: on the
+        # items-side plans above and on the users-side plans of all arcs
+        # (f32) and of the tail (bf16) that the mesh paths run (phase 15's
+        # world of 1), whose item table stays in L2.
+        E_i = params["embedding"][prepared.n_users :]
+        users = np.arange(split.n_users)
+        users_plan = build_segreduce_plan(
+            split.iu_src_item, np.repeat(users, np.diff(split.iu_indptr)), split.iu_w, split.n_users,
+            device=dev,
+        )
+        users_tail = build_segreduce_plan(
+            t_iu_src, np.repeat(users, np.diff(t_iu_indptr)), t_iu_w, split.n_users, device=dev
+        )
+        rows[0]["short_rows"] = {"to_items": check_short_rows("items-side f32", E_u, full_plan),
+                                 "to_users": check_short_rows("users-side f32", E_i, users_plan)}
+        rows[-1]["short_rows"] = {
+            "to_items": check_short_rows("items-side bf16", E_u16, tail_plan),
+            "to_users": check_short_rows("users-side bf16", bf16_rows(E_i), users_tail),
+        }
+        del full_plan, users_plan, users_tail, E_i
         rows[-1]["bucketed"] = {
             str(nb): check_bucketed("main configuration", E_u16, tail_plan, (t_src, t_dst, t_w),
                                     split.n_users, nb)

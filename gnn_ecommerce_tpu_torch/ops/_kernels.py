@@ -90,7 +90,7 @@ class SegReduceKernel(_Kernel):
     def _bind(self, lib: ctypes.CDLL) -> None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for fn in (lib.segreduce_f32, lib.segreduce_bf16):
-            fn.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, ptr, i64, ptr, ptr, i64, i64, ptr, ptr, i32, ptr]
+            fn.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr, i64, ptr, ptr, i64, i64, ptr, ptr, i32, ptr]
             fn.restype = ctypes.c_int
         lib.segreduce_cast_bf16.argtypes = [ptr, i64, i32, i64, ptr, ptr]
         lib.segreduce_cast_bf16.restype = ctypes.c_int
@@ -167,8 +167,9 @@ class SegReduceKernel(_Kernel):
         with _on_device(table.device):
             rc = fn(
                 table.data_ptr(), self.row_stride(table), d, vec,
-                plan.src.data_ptr(), plan.w.data_ptr(), plan.chunk_ptr.data_ptr(),
-                plan.chunk_slot.data_ptr(), plan.n_chunks, plan.comb_rows.data_ptr(),
+                plan.src.data_ptr(), plan.w.data_ptr(), plan.dst.data_ptr(), plan.chunk_ptr.data_ptr(),
+                plan.chunk_slot.data_ptr(), plan.n_chunks, plan.n_out, plan.packed.data_ptr(),
+                plan.n_packed, plan.comb_rows.data_ptr(),
                 plan.comb_ptr.data_ptr(), plan.comb_rows.numel(), plan.n_long, partial.data_ptr(),
                 out.data_ptr(), int(accumulate is not None), _raw_stream(table.device),
             )

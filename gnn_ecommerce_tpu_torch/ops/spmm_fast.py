@@ -5,7 +5,9 @@ Counterpart of ``gnn_ecommerce_tpu/ops/spmm_fast.py``:
 - ``to_items = Â_iu · x_users`` (gather from the big user table, reduce over
   items) runs the hand-written CUDA segment reduce ``csrc/segreduce.cu``
   through :func:`gather_segreduce`, over a CSR-over-items plan of the arcs
-  (:func:`build_segreduce_plan`) cut into chunks of at most ``ch`` arcs;
+  (:func:`build_segreduce_plan`) cut into chunks of at most ``ch`` arcs,
+  runs of short rows packed whole into one chunk (the sharded paths run
+  the same kernel on users-side plans of rows of a few arcs);
 - ``to_users = Â_ui · x_items`` (gather from the small item table) is the
   degree-binned ELL gather + width-sum :func:`ell_apply` in plain torch, as
   the JAX package leaves it to XLA.
@@ -122,25 +124,43 @@ def ell_apply(
 # A row with more chunks than this is combined by a block of warps, a row
 # with fewer by one warp.
 LONG_ROW_CHUNKS = 32
+# A row of at most this many arcs (and at most ch) is short: runs of short
+# rows are packed whole into chunks of at most ch arcs, one warp a chunk
+# writing each row as it ends. Longer rows keep chunks of their own. The
+# largest limit at which no plan of the main configuration ran slower than
+# unpacked on an H100 (chip_smoke.py phase 3, check_short_rows): packing
+# rows of 17 to 64 arcs sped the users side up but slowed the items side.
+SHORT_ROW_ARCS = 16
+# A packed chunk spans at most this many rows: its warp writes a row every
+# few arcs, and on an H100 a chunk of 256 one-arc rows outlasted the rest
+# of its pass (the src-bucketed plan's tails, in accumulate mode), as
+# chunks of 32 rows did on an edge rank's to_items plan.
+PACKED_ROWS = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class SegReducePlan:
     """Dst-sorted arcs (a CSR over the ``n_out`` rows), cut into chunks of at
-    most ``ch`` arcs that never cross a row. The kernel gives each chunk a
-    warp: a row's only chunk writes the output row itself, the chunks of a
-    row with several write partial rows that a second pass adds in a fixed
-    order, and that pass also zeroes the rows with no arc. The plain version
-    reads ``src``/``dst``/``w`` directly. No padding: every arc is real."""
+    most ``ch`` arcs, one warp each. A run of consecutive short rows (at
+    most ``SHORT_ROW_ARCS`` arcs) is packed whole into chunks of at most
+    ``PACKED_ROWS`` rows, each of which writes its rows' output rows as
+    they end. A longer row gets chunks of its own: its only chunk writes
+    the output row, the chunks of a row with several write partial rows
+    that a second pass adds in a fixed order, and that pass also zeroes
+    the rows with no arc. Every output row has one writer. The plain
+    version reads ``src``/``dst``/``w`` directly. No padding: every arc is
+    real."""
 
     src: torch.Tensor  # [E] int32 rows of the table
     dst: torch.Tensor  # [E] int32 output rows, ascending
     w: torch.Tensor  # [E] float32 normalized weights
     chunk_ptr: torch.Tensor  # [n_chunks+1] int64 arc offsets of the chunks
-    row_chunk_ptr: torch.Tensor  # [n_out+1] int64 chunk range of each row
-    # [n_chunks] int32: the output row of a row's only chunk; -1 - p for a
-    # chunk that writes partial row p (a row's chunks take consecutive p).
+    row_chunks: torch.Tensor  # [n_out] int32 chunks holding the row's arcs (0: no arc)
+    # [n_chunks] int32: r in [0, n_out) for row r's only chunk; n_out + r for
+    # a packed chunk whose first row is r; -1 - p for a chunk that writes
+    # partial row p (a row's chunks take consecutive p).
     chunk_slot: torch.Tensor
+    packed: torch.Tensor  # [n_packed] int32 the packed chunks, ascending (launched first)
     # [n_comb] int32 rows with no chunk or several: the n_long rows of more
     # than LONG_ROW_CHUNKS chunks, then the others, each part ascending.
     comb_rows: torch.Tensor
@@ -149,39 +169,69 @@ class SegReducePlan:
     n_src: int  # the table needs at least this many rows
     n_partial: int  # partial rows: the chunks of rows with several
     n_long: int  # the first n_long comb rows are each combined by a block
+    n_packed: int  # packed chunks: the chunks that hold more than one row
 
     @property
     def n_chunks(self) -> int:
         return int(self.chunk_ptr.shape[0]) - 1
 
 
-def build_segreduce_plan(
-    src: np.ndarray,
-    dst_sorted: np.ndarray,
-    w: np.ndarray,
-    n_out: int,
-    ch: int = 256,
-    device: str | torch.device = "cuda",
-) -> SegReducePlan:
+def _packed_starts(cnt: np.ndarray, indptr: np.ndarray, ch: int, short: np.ndarray) -> np.ndarray:
+    """The first rows of the packed chunks: each run of short rows (a row
+    with no arc does not end a run) is cut greedily, in row order, into
+    chunks of whole rows of at most ``ch`` arcs spanning at most
+    PACKED_ROWS rows."""
+    n_out = len(cnt)
+    rows = np.arange(n_out + 1)
+    # fit[i]: one past the last row that a chunk starting at row i holds
+    # whole within ch arcs; stop[i]: the first long row from i on; nxt[j]:
+    # the first short row from j on (n_out: none).
+    fit = np.searchsorted(indptr, indptr[:-1] + ch, side="right") - 1
+    ends = np.append(np.flatnonzero((cnt > 0) & ~short), n_out)
+    stop = ends[np.searchsorted(ends, rows[:-1])]
+    shorts = np.append(np.flatnonzero(short), n_out)
+    nxt = shorts[np.searchsorted(shorts, rows)]
+    starts, i = [], int(nxt[0])
+    while i < n_out:
+        starts.append(i)
+        i = int(nxt[min(stop[i], fit[i], i + PACKED_ROWS)])
+    return np.asarray(starts, dtype=np.int64)
+
+
+def _segreduce_plan(src, dst_sorted, w, n_out: int, ch: int, device, short_arcs: int) -> SegReducePlan:
+    """:func:`build_segreduce_plan` with rows of at most ``short_arcs`` arcs
+    packed; 0 packs none (every row in chunks of its own, the layout of
+    the kernel before packing, kept to time against)."""
     dev = resolve_device(device)
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst_sorted, dtype=np.int64)
     if len(dst) and (np.any(np.diff(dst) < 0) or dst[0] < 0 or dst[-1] >= n_out):
         raise ValueError("dst_sorted must be ascending ids in [0, n_out)")
+    if 2 * n_out >= 2**31:
+        raise ValueError(f"chunk_slot holds n_out + row in int32: n_out {n_out} is too large")
     cnt = np.bincount(dst, minlength=n_out)
     indptr = np.concatenate([[0], np.cumsum(cnt)])
-    per_row = -(-cnt // ch)
-    row_chunk_ptr = np.concatenate([[0], np.cumsum(per_row)])
+    short = (cnt > 0) & (cnt <= min(short_arcs, ch))
+    row_chunks = np.where(short, 1, -(-cnt // ch))
+    # Chunks that start at each row: a long row's own, and one at the first
+    # row of each packed chunk; a chunk runs to the next one's first arc.
+    per_row = np.where(short, 0, row_chunks)
+    per_row[_packed_starts(cnt, indptr, ch, short)] = 1
     chunk_row = np.repeat(np.arange(n_out), per_row)
-    k_in_row = np.arange(int(row_chunk_ptr[-1])) - np.repeat(row_chunk_ptr[:-1], per_row)
+    k_in_row = np.arange(len(chunk_row)) - np.repeat(np.cumsum(per_row) - per_row, per_row)
     chunk_ptr = np.append(indptr[chunk_row] + ch * k_in_row, len(dst))
-    long_rows = np.flatnonzero(per_row > LONG_ROW_CHUNKS)
-    comb_rows = np.concatenate([long_rows, np.flatnonzero((per_row != 1) & (per_row <= LONG_ROW_CHUNKS))])
-    comb_ptr = np.concatenate([[0], np.cumsum(per_row[comb_rows])])
+    long_rows = np.flatnonzero(row_chunks > LONG_ROW_CHUNKS)
+    comb_rows = np.concatenate(
+        [long_rows, np.flatnonzero((row_chunks != 1) & (row_chunks <= LONG_ROW_CHUNKS))]
+    )
+    comb_ptr = np.concatenate([[0], np.cumsum(row_chunks[comb_rows])])
     first_partial = np.zeros(n_out, np.int64)
     first_partial[comb_rows] = comb_ptr[:-1]
+    packed = dst[chunk_ptr[1:] - 1] != chunk_row if len(chunk_row) else np.zeros(0, bool)
     chunk_slot = np.where(
-        per_row[chunk_row] == 1, chunk_row, -1 - (first_partial[chunk_row] + k_in_row)
+        row_chunks[chunk_row] == 1,
+        chunk_row + n_out * packed,
+        -1 - (first_partial[chunk_row] + k_in_row),
     )
 
     def put(a, dtype):
@@ -192,15 +242,28 @@ def build_segreduce_plan(
         dst=put(dst, np.int32),
         w=put(w, np.float32),
         chunk_ptr=put(chunk_ptr, np.int64),
-        row_chunk_ptr=put(row_chunk_ptr, np.int64),
+        row_chunks=put(row_chunks, np.int32),
         chunk_slot=put(chunk_slot, np.int32),
+        packed=put(np.flatnonzero(packed), np.int32),
         comb_rows=put(comb_rows, np.int32),
         comb_ptr=put(comb_ptr, np.int64),
         n_out=int(n_out),
         n_src=int(src.max()) + 1 if len(src) else 0,
         n_partial=int(comb_ptr[-1]),
         n_long=len(long_rows),
+        n_packed=int(packed.sum()),
     )
+
+
+def build_segreduce_plan(
+    src: np.ndarray,
+    dst_sorted: np.ndarray,
+    w: np.ndarray,
+    n_out: int,
+    ch: int = 256,
+    device: str | torch.device = "cuda",
+) -> SegReducePlan:
+    return _segreduce_plan(src, dst_sorted, w, n_out, ch, device, SHORT_ROW_ARCS)
 
 
 def segreduce_plain(
@@ -307,6 +370,13 @@ def build_bucketed_segreduce_plan(
     (still sorted by destination). A range may hold no arc. Unlike the JAX
     builder, buckets are not padded to one chunk count: that spared the TPU
     one kernel compile per bucket, and a CUDA launch takes any plan."""
+    return _bucketed_plan(src, dst_sorted, w, n_out, n_src, n_buckets, ch, device, SHORT_ROW_ARCS)
+
+
+def _bucketed_plan(src, dst_sorted, w, n_out: int, n_src: int, n_buckets: int, ch: int, device,
+                   short_arcs: int) -> BucketedSegReducePlan:
+    """:func:`build_bucketed_segreduce_plan` whose buckets pack rows of at
+    most ``short_arcs`` arcs (:func:`_segreduce_plan`)."""
     dev = resolve_device(device)
     src = np.asarray(src)
     dst_sorted = np.asarray(dst_sorted)
@@ -316,7 +386,7 @@ def build_bucketed_segreduce_plan(
     for b in range(n_buckets):
         lo, hi = int(bounds[b]), int(bounds[b + 1])
         m = (src >= lo) & (src < hi)
-        plans.append(build_segreduce_plan(src[m] - lo, dst_sorted[m], w[m], n_out, ch=ch, device=dev))
+        plans.append(_segreduce_plan(src[m] - lo, dst_sorted[m], w[m], n_out, ch, dev, short_arcs))
         spans.append((lo, hi))
     return BucketedSegReducePlan(buckets=tuple(plans), spans=tuple(spans), n_out=int(n_out))
 

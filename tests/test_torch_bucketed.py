@@ -9,6 +9,8 @@ Tolerances are those of ``tests/test_spmm_fast.py``: f32 at rtol/atol
 2e-5 (the sums differ only in order), the bf16 forward with a 32-user head
 within 3e-2 of max|ref| of the f32 layered reference.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,6 +118,35 @@ def test_bucketed_equals_unbucketed(n_buckets, mode):
     out = tfast.gather_segreduce_bucketed(x, plan, tdt)
     np.testing.assert_allclose(out[:n_out].numpy(), ref.numpy(), rtol=2e-5, atol=2e-5)
     assert not out[n_out:].any()
+
+
+@pytest.mark.parametrize("n_buckets", BUCKETS)
+@pytest.mark.parametrize("layout", ["float32", "bf16 padded"])
+def test_accumulate_order_on_packed_buckets(small, n_buckets, layout):
+    """K1's accumulate mode over the packed bucket plans, in the kernel's
+    order (``_kernel_order`` with ``prev``): each bucket's pass writes every
+    row once, adds each row that has arcs in the bucket onto what the last
+    pass left and leaves every other row's bits as they were; chained, the
+    passes give the plain bucketed result (2e-5)."""
+    from test_torch_spmm_fast import _geometry, _kernel_order
+
+    src, dst, w, n_out, n_src = _ui(small[3])
+    plan = tfast.build_bucketed_segreduce_plan(src, dst, w, n_out, n_src, n_buckets, device="cpu")
+    assert any(p.n_packed for p in plan.buckets)  # 60 items: 8-50 arcs a bucket
+    x = torch.from_numpy(normal(4, (n_src, 12)))
+    table = x if layout == "float32" else tfast.bf16_rows(x)
+    acc = np.zeros((n_out, 12), np.float32)
+    for (lo, hi), p in zip(plan.spans, plan.buckets):
+        sub = table[lo:hi]
+        wp = p if sub.dtype == torch.float32 else dataclasses.replace(p, w=p.w.to(torch.bfloat16).float())
+        got = _kernel_order(sub.float().numpy(), wp, *_geometry(sub), prev=acc)
+        empty = p.row_chunks.numpy() == 0
+        np.testing.assert_array_equal(got[empty].view(np.int32), acc[empty].view(np.int32))
+        sums = tfast.segreduce_plain(sub, p).numpy()
+        np.testing.assert_allclose(got[~empty], acc[~empty] + sums[~empty], rtol=1e-5, atol=1e-5)
+        acc = got
+    ref = tfast.gather_segreduce_bucketed(x, plan, table.dtype).numpy()
+    np.testing.assert_allclose(acc, ref, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])

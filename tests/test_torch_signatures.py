@@ -44,7 +44,7 @@ DELIBERATE = {
     "models.lightgcn.init_params": "Generators: a torch.Generator in the slot of JAX's key",
     "models.svd.init_svd": "Generators: a torch.Generator in the slot of JAX's key",
     "sampling.bpr.sample_batch": "Generators: a torch.Generator in the slot of JAX's key",
-    "ops.spmm_fast.SegReducePlan.__init__": "K1's plan: warp chunks of a CSR, no TPU tile",
+    "ops.spmm_fast.SegReducePlan.__init__": "K1's plan: warp chunks of a CSR (short rows packed), no TPU tile",
     "ops.spmm_fast.build_segreduce_plan": "K1's plan has no TPU tile: no ot",
     "ops.spmm_fast.gather_segreduce": "no interpret mode: a CPU table takes the plain version",
     "ops.spmm_fast.BucketedSegReducePlan.__init__": "its buckets are K1's plans: no TPU tile, no ot",

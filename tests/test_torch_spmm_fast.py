@@ -45,55 +45,125 @@ def test_gather_segreduce_matches_pallas(small, mode):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
+def _chunk_rows(plan) -> list:
+    """Each chunk's rows: the dst values of its arcs, ascending, once each."""
+    cp, dst = plan.chunk_ptr.numpy(), plan.dst.numpy()
+    return [np.unique(dst[cp[c] : cp[c + 1]]) for c in range(plan.n_chunks)]
+
+
+def _users_side_arcs(seed: int = 11, n_out: int = 700, n_src: int = 60, hub: int = 1500):
+    """Arcs shaped like a users-side plan: rows of 1-12 arcs from a small
+    item table, a tenth of the rows empty, and one hub row."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 13, n_out) * (rng.random(n_out) >= 0.1)
+    sizes[n_out // 3] = hub
+    dst = np.repeat(np.arange(n_out), sizes)
+    src = rng.integers(0, n_src, len(dst)).astype(np.int32)
+    w = (rng.random(len(dst)) + 0.05).astype(np.float32)
+    return src, dst, w, n_out, n_src
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_gather_segreduce_short_rows_matches_pallas(mode):
+    """A users-side-shaped plan (packed chunks of short rows, empty rows,
+    a hub of several chunks) against the Pallas kernel in interpret mode,
+    2e-5 as the items-side case."""
+    src, dst, w, n_out, n_src = _users_side_arcs()
+    jdt, tdt = DTYPES[mode]
+    x = normal(12, (n_src, 16))
+    jplan = jfast.build_segreduce_plan(src, dst, w, n_out)
+    ref = jfast.gather_segreduce(jnp.asarray(x), jplan, msgs_dtype=jdt, interpret=True)
+    tplan = tfast.build_segreduce_plan(src, dst, w, n_out, device="cpu")
+    assert tplan.n_packed >= 10 and tplan.n_partial >= 2
+    out = tfast.gather_segreduce(torch.from_numpy(x), tplan, msgs_dtype=tdt)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    assert not out[torch.from_numpy(np.bincount(dst, minlength=n_out) == 0)].any()
+
+
 @pytest.mark.parametrize("ch", [1, 4, 256])
 def test_segreduce_plan_chunks_cover_rows(small, ch):
-    """The chunk layout the kernel walks: chunks never cross a row, hold at
-    most ``ch`` arcs, cover every arc once, and the kernel's two-pass sum
-    over them (chunk partials, then each row's partials in order) equals
-    the plain version."""
+    """The chunk layout the kernel walks, on the small graph's to_items arcs
+    and its users-side arcs (rows of a few arcs): chunks hold at most
+    ``ch`` arcs and cover every arc once; a chunk that crosses a row holds
+    only whole rows of at most SHORT_ROW_ARCS arcs (a packed chunk), any
+    other row lies in ``row_chunks`` chunks of its own; and the kernel's
+    two-pass sum over them (chunk sums by row, then each row's partials in
+    order) equals the plain version."""
     _, tsplit = small
-    plan = tfast.build_segreduce_plan(*_ui_arcs(tsplit), ch=ch, device="cpu")
-    cp = plan.chunk_ptr.numpy()
-    rcp = plan.row_chunk_ptr.numpy()
-    dst = plan.dst.numpy()
-    sizes = np.diff(cp)
-    assert cp[0] == 0 and cp[-1] == len(dst)
-    assert (sizes >= 1).all() and (sizes <= ch).all()
-    assert rcp[-1] == plan.n_chunks
-    for r in range(plan.n_out):
-        for c in range(rcp[r], rcp[r + 1]):
-            assert (dst[cp[c] : cp[c + 1]] == r).all()
-    x = normal(1, (tsplit.n_users, 8))
-    msgs = (x[plan.src.numpy()] * plan.w.numpy()[:, None]).astype(np.float32)
-    partial = np.stack([msgs[cp[c] : cp[c + 1]].sum(0) for c in range(plan.n_chunks)])
-    two_pass = np.stack([partial[rcp[r] : rcp[r + 1]].sum(0) for r in range(plan.n_out)])
-    plain = tfast.segreduce_plain(torch.from_numpy(x), plan).numpy()
-    np.testing.assert_allclose(two_pass, plain, rtol=1e-5, atol=1e-6)
+    users_side = (tsplit.iu_src_item, tsplit.iu_dst_user, tsplit.iu_w, tsplit.n_users)
+    for arcs, n_src in ((_ui_arcs(tsplit), tsplit.n_users), (users_side, tsplit.n_items)):
+        plan = tfast.build_segreduce_plan(*arcs, ch=ch, device="cpu")
+        cp = plan.chunk_ptr.numpy()
+        dst = plan.dst.numpy()
+        cnt = np.bincount(dst, minlength=plan.n_out)
+        sizes = np.diff(cp)
+        assert cp[0] == 0 and cp[-1] == len(dst)
+        assert (sizes >= 1).all() and (sizes <= ch).all()
+        holders = np.zeros(plan.n_out, np.int64)
+        for rows in _chunk_rows(plan):
+            holders[rows] += 1
+            if len(rows) > 1:
+                assert (cnt[rows] <= min(tfast.SHORT_ROW_ARCS, ch)).all()
+        np.testing.assert_array_equal(holders, plan.row_chunks.numpy())
+        assert plan.n_packed == sum(len(rows) > 1 for rows in _chunk_rows(plan))
+        x = normal(1, (n_src, 8))
+        msgs = (x[plan.src.numpy()] * plan.w.numpy()[:, None]).astype(np.float32)
+        two_pass = np.zeros((plan.n_out, 8), np.float32)
+        for c in range(plan.n_chunks):
+            np.add.at(two_pass, dst[cp[c] : cp[c + 1]], msgs[cp[c] : cp[c + 1]])
+        plain = tfast.segreduce_plain(torch.from_numpy(x), plan).numpy()
+        np.testing.assert_allclose(two_pass, plain, rtol=1e-5, atol=1e-6)
+    if ch == 256:  # the users-side rows (about 7 arcs) are packed
+        assert plan.n_packed >= 1
 
 
-def _edge_plan(seed: int, ch: int, n_src: int = 50):
+def _short_runs(rng: np.random.Generator, ch: int) -> list:
+    """Row sizes of runs of short rows, each run between two long rows:
+    rows of 1-12 arcs (at most the shortness limit) with empty rows inside,
+    a run of exactly ch arcs and one of ch + 1 (rows of the limit's length,
+    so that ch arcs fill one packed chunk where PACKED_ROWS such rows
+    hold them)."""
+    lim = min(tfast.SHORT_ROW_ARCS, ch)
+    long = [lim + 1]
+
+    def run(total):
+        return [lim] * (total // lim) + [total % lim] * (total % lim > 0)
+
+    mixed = [int(n) for n in rng.integers(1, min(12, lim) + 1, 60)]
+    for at in (5, 6, 30, 59):  # two empty rows in a row, then single ones
+        mixed.insert(at, 0)
+    return long + mixed + long + run(ch) + long + run(ch + 1) + long
+
+
+def _edge_plan(seed: int, ch: int, n_src: int = 50, short_runs: bool = False):
     """A plan with empty rows (first, middle, last), one arc, exactly ch and
-    ch + 1 arcs, a hub of 40 chunks and random rows."""
+    ch + 1 arcs, a hub of 40 chunks and random rows; with ``short_runs``
+    also :func:`_short_runs`' runs of short rows."""
     rng = np.random.default_rng(seed)
     sizes = np.concatenate([[0, 1, ch, ch + 1, 0, 40 * ch + 3], rng.integers(0, 3 * ch + 2, 30), [0]])
+    if short_runs:
+        sizes = np.concatenate([sizes[:-1], _short_runs(rng, ch), [0]])
     dst = np.repeat(np.arange(len(sizes)), sizes)
     src = rng.integers(0, n_src, len(dst))
     w = rng.random(len(dst)).astype(np.float32)
     return tfast.build_segreduce_plan(src, dst, w, len(sizes), ch=ch, device="cpu")
 
 
+@pytest.mark.parametrize("short_runs", [False, True], ids=["rows", "short_rows"])
 @pytest.mark.parametrize("ch", [1, 4, 32, 256])
-def test_segreduce_plan_output_slots(ch):
-    """chunk_slot, comb_rows and comb_ptr against chunk_ptr/row_chunk_ptr:
-    a row's only chunk writes the row itself; comb_rows are exactly the rows
-    with no chunk or several, those of more than LONG_ROW_CHUNKS chunks
-    first; their partial rows follow comb_rows' order, and a row's chunks
-    take its consecutive partial rows in chunk order; every output row is
-    written once."""
-    plan = _edge_plan(ch, ch)
-    rcp = plan.row_chunk_ptr.numpy()
-    per_row = np.diff(rcp)
+def test_segreduce_plan_output_slots(ch, short_runs):
+    """chunk_slot, comb_rows and comb_ptr against chunk_ptr and row_chunks:
+    a chunk of whole rows (a row's only chunk, or a packed run of short
+    rows) writes them itself and names its first (a packed chunk as n_out +
+    its first); each packed row lies in exactly one chunk; comb_rows are exactly the rows with no chunk or
+    several, those of more than LONG_ROW_CHUNKS chunks first; their partial
+    rows follow comb_rows' order, and a row's chunks take its consecutive
+    partial rows in chunk order; every output row is written once."""
+    plan = _edge_plan(ch, ch, short_runs=short_runs)
+    per_row = plan.row_chunks.numpy()
+    cnt = np.bincount(plan.dst.numpy(), minlength=plan.n_out)
     slot = plan.chunk_slot.numpy()
+    rows_of = _chunk_rows(plan)
     comb_rows, comb_ptr = plan.comb_rows.numpy(), plan.comb_ptr.numpy()
     assert per_row.max() >= 41 and (per_row == 0).sum() >= 3
     long_rows = np.flatnonzero(per_row > tfast.LONG_ROW_CHUNKS)
@@ -104,11 +174,27 @@ def test_segreduce_plan_output_slots(ch):
     np.testing.assert_array_equal(np.diff(comb_ptr), per_row[comb_rows])
     assert comb_ptr[0] == 0 and comb_ptr[-1] == plan.n_partial == per_row[per_row > 1].sum()
     for k, r in enumerate(comb_rows):
-        np.testing.assert_array_equal(-1 - slot[rcp[r] : rcp[r + 1]], np.arange(comb_ptr[k], comb_ptr[k + 1]))
-    single = np.flatnonzero(per_row == 1)
-    np.testing.assert_array_equal(slot[rcp[single]], single)
-    written = np.concatenate([slot[slot >= 0], comb_rows])
+        chunks = [c for c, rows in enumerate(rows_of) if r in rows]
+        np.testing.assert_array_equal(-1 - slot[chunks], np.arange(comb_ptr[k], comb_ptr[k + 1]))
+    whole = np.flatnonzero(slot >= 0)
+    np.testing.assert_array_equal(
+        slot[whole], [rows_of[c][0] + plan.n_out * (len(rows_of[c]) > 1) for c in whole]
+    )
+    packed = [rows_of[c] for c in whole if len(rows_of[c]) > 1]
+    assert plan.n_packed == len(packed)
+    np.testing.assert_array_equal(plan.packed.numpy(), [c for c in whole if len(rows_of[c]) > 1])
+
+    written = np.concatenate([np.concatenate([rows_of[c] for c in whole]), comb_rows])
     np.testing.assert_array_equal(np.sort(written), np.arange(plan.n_out))
+    if short_runs:
+        lim = min(tfast.SHORT_ROW_ARCS, ch)
+        assert packed or lim == 1  # rows of one arc each pack only one to a chunk of 1
+        for rows in packed:
+            assert (cnt[rows] <= lim).all() and cnt[rows].sum() <= ch
+            assert rows[-1] - rows[0] < tfast.PACKED_ROWS
+        # The run of exactly ch arcs fills one packed chunk (ch + 1 needs two).
+        if 1 < lim and ch <= lim * tfast.PACKED_ROWS:
+            assert any(cnt[rows].sum() == ch for rows in packed)
 
 
 def _geometry(table: torch.Tensor) -> tuple:
@@ -120,23 +206,43 @@ def _geometry(table: torch.Tensor) -> tuple:
     return SEGREDUCE.vector_width(table), (16 - align + table.shape[1] * elt + 15) // 16
 
 
-def _kernel_order(x: np.ndarray, plan, vec: int, nv16: int) -> np.ndarray:
-    """csrc/segreduce.cu's sums in its fixed order, in f32 numpy. In a chunk,
-    a copy step carries ``rows`` arcs and lane group g sums rows g,
+def _kernel_order(x: np.ndarray, plan, vec: int, nv16: int, prev: np.ndarray | None = None) -> np.ndarray:
+    """csrc/segreduce.cu's sums in its fixed order, in f32 numpy. In a
+    chunk, a copy step carries ``rows`` arcs and lane group g sums rows g,
     g + groups, ... of each step, so arc k (counted from its 256-arc index
-    window) goes to group (k % rows) % groups; each group sums its arcs in
-    order and the groups are added in order. A row's only chunk is its
-    output. The combine gives each of the first n_long comb rows a block,
-    whose warp g adds partials g, g+8, ... before the 8 warp sums are added
-    in order; each other comb row's warp adds its partials in order."""
+    window) goes to group (k % rows) % groups; each group sums a row's arcs
+    in order and the groups are added in order. A row's only chunk is its
+    output. A packed chunk (chunk_slot n_out + its first row) has one
+    group: each of its rows is its arcs' products added in order, written
+    where the row ends. The combine gives each of the first n_long comb
+    rows a block, whose warp g adds partials g, g+8, ... before the 8 warp
+    sums are added in order; each other comb row's warp adds its partials
+    in order. With ``prev`` (accumulate mode) each written row is
+    ``prev[row] + sum`` and a row with no arc keeps ``prev[row]``. Every
+    output row is written exactly once."""
     d = x.shape[1]
     n_cv = -(-d // vec)
     rows = 32 // nv16 if nv16 <= 32 else 1
     groups = 32 // n_cv if n_cv <= 32 else 1
-    src, w, cp = plan.src.numpy(), plan.w.numpy(), plan.chunk_ptr.numpy()
+    src, w, cp, dst = plan.src.numpy(), plan.w.numpy(), plan.chunk_ptr.numpy(), plan.dst.numpy()
     out = np.full((plan.n_out, d), np.nan, np.float32)
     partial = np.full((plan.n_partial, d), np.nan, np.float32)
+    written = np.zeros(plan.n_out, bool)
+
+    def write(r, total):
+        assert not written[r], f"row {r} written twice"
+        written[r] = True
+        out[r] = total if prev is None else prev[r] + total
+
     for c, dest in enumerate(plan.chunk_slot.numpy()):
+        if dest >= plan.n_out:
+            for r in np.unique(dst[cp[c] : cp[c + 1]]):
+                acc = np.zeros(d, np.float32)
+                for a in range(cp[c], cp[c + 1]):
+                    if dst[a] == r:
+                        acc = acc + w[a] * x[src[a]]
+                write(r, acc)
+            continue
         acc = np.zeros((groups, d), np.float32)
         for k in range(cp[c + 1] - cp[c]):
             a = cp[c] + k
@@ -144,7 +250,10 @@ def _kernel_order(x: np.ndarray, plan, vec: int, nv16: int) -> np.ndarray:
         total = acc[0]
         for g in range(1, groups):
             total = total + acc[g]
-        (out if dest >= 0 else partial)[dest if dest >= 0 else -1 - dest] = total
+        if dest >= 0:
+            write(dest, total)
+        else:
+            partial[-1 - dest] = total
     comb_ptr = plan.comb_ptr.numpy()
     for b, r in enumerate(plan.comb_rows.numpy()):
         lo, hi = comb_ptr[b], comb_ptr[b + 1]
@@ -156,10 +265,17 @@ def _kernel_order(x: np.ndarray, plan, vec: int, nv16: int) -> np.ndarray:
         total = warps[0]
         for g in range(1, n_warps):
             total = total + warps[g]
-        out[r] = total
+        if prev is not None and lo == hi:  # no arc: prev stays
+            assert not written[r]
+            written[r] = True
+            out[r] = prev[r]
+        else:
+            write(r, total)
+    assert written.all()
     return out
 
 
+@pytest.mark.parametrize("short_runs", [False, True], ids=["rows", "short_rows"])
 @pytest.mark.parametrize(
     "ch,d,layout",
     [
@@ -171,10 +287,11 @@ def _kernel_order(x: np.ndarray, plan, vec: int, nv16: int) -> np.ndarray:
         (32, 1, "bf16 padded"),  # one vector a row: 32 rows a step
     ],
 )
-def test_segreduce_kernel_order_matches_plain(ch, d, layout):
+def test_segreduce_kernel_order_matches_plain(ch, d, layout, short_runs):
     """The kernel's summation order over the plan (every row written once,
-    empty rows zero) gives the plain version's sums within f32 rounding."""
-    plan = _edge_plan(7, ch)
+    empty rows zero) gives the plain version's sums within f32 rounding,
+    on plans with and without runs of short rows (packed chunks)."""
+    plan = _edge_plan(7, ch, short_runs=short_runs)
     x = torch.from_numpy(normal(8, (50, d)))
     table = {"float32": x, "bfloat16": x.to(torch.bfloat16), "bf16 padded": tfast.bf16_rows(x)}[layout]
     plain = tfast.segreduce_plain(table, plan).numpy()
@@ -182,7 +299,7 @@ def test_segreduce_kernel_order_matches_plain(ch, d, layout):
         plan = dataclasses.replace(plan, w=plan.w.to(torch.bfloat16).float())
     got = _kernel_order(table.float().numpy(), plan, *_geometry(table))
     assert not np.isnan(got).any()
-    empty = np.diff(plan.row_chunk_ptr.numpy()) == 0
+    empty = plan.row_chunks.numpy() == 0
     assert (got[empty] == 0).all()
     np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max())
 

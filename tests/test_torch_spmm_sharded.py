@@ -128,6 +128,31 @@ def test_shard_partials_add_up_in_one_process(case, worlds, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_users_side_plans_pack_short_rows(case, worlds, world):
+    """Each shard's users-side plan packs its short rows (packed chunks of
+    CH arcs), and K1's summation order over it (``_kernel_order``: every
+    row written once, a row with no arc zero), the shards' rows stacked and
+    the head added, gives JAX's to_users (f32, JAX's bound)."""
+    from test_torch_spmm_fast import _geometry, _kernel_order
+
+    x_i = torch.from_numpy(case["x_i"])
+    parts = [
+        build_sharded_fast_ops(
+            case["split"], mesh_description((1, world), s, device="cpu"), heavy_users=HEAVY, ot=OT, ch=CH
+        )
+        for s in range(world)
+    ]
+    assert all(p.users_stack.plan.n_packed for p in parts)
+    users = np.concatenate(
+        [_kernel_order(case["x_i"], p.users_stack.plan, *_geometry(x_i)) for p in parts]
+    )[: case["n_u"]]
+    head = parts[0]
+    users = torch.from_numpy(users).index_add(0, head.hi_ids.long(), head.w_hi.T @ x_i)
+    _, ref = worlds[world]
+    np.testing.assert_allclose(users.numpy(), ref["to_users_float32"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("key", [
     "to_items_float32", "to_users_float32", "to_items_bfloat16", "to_users_bfloat16",
     "vjp_items", "vjp_users",
