@@ -184,9 +184,35 @@ Phases, one printed line each (plus detail lines):
               and the 8-bucket K1 against their plain versions at its
               shapes (the [1,639,358, 80] initial user table over its
               graph's tail plan after the 16,384-user head)
+ 17 serve_load (runs after 16) the serving runs of runs/ (the ports
+              of scripts/serve_sustained_r3.py, serve_r4.py, serve_r5.py
+              and serve_register_r5.py) on phase 4's service, switched to
+              f32 serving of phase 9's best checkpoint (of the first two
+              epochs), and on a second, quantized service on the same
+              checkpoint (its own f32 B_ii: its seconds and card memory
+              printed), the protocols cut by SERVE_LOAD: 8 clients x 64
+              users for 3 s against the service without the batcher, then
+              2 s under torch.profiler (host time in the CUDA runtime's
+              copies and stream waits a request, the card's busy share);
+              serve_r4's 2 s windows alternating the unbatched and the
+              batched server, big (8 x 64) and small (16 x 4) requests;
+              serve_r5's interleaved 1 s slices, 2 measured pairs after a
+              warm one: small batched against unbatched, big requests
+              through the solo_min bypass against forced coalescing, int8
+              against f32 (big, and small batched), and the int8 top-20's
+              overlap with f32 on 4,096 users; the register sequence
+              through the HTTP management API (register the resumed third
+              epoch's LightGCN_last, ask, roll back, ask, unregister) idle
+              and under 8 x 64 clients, the load's p50/p99 in the register's
+              window against the rest; every run's JSON line printed;
+              no request may fail and every answer must be the plain
+              top-20 of the version that served it (f32 within 1e-6
+              relative at ties, int8 exact), under the swaps one version's
+              in all its rows, and the rollback exact; K1 f32 launched by
+              the refreshes and registers
  11 kernels   one JSON line of the port's kernels, with their launches on
               the paths of phases 4-6, 13, 14 and 15 (every rank's), 7, 8,
-              9, 10, 12 (train, infer and svd apart) and 16 (each counted
+              9, 10, 12 (train, infer and svd apart), 16 and 17 (each counted
               from 0 just before the path and read just after), K1's with
               its accumulate launches (also counted apart); K1's rows
               (and its cast's) also carry each mesh rank's shapes and times
@@ -207,6 +233,7 @@ import io
 import json
 import multiprocessing
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -215,7 +242,6 @@ import tempfile
 import threading
 import time
 import traceback
-import urllib.request
 
 import numpy as np
 import torch
@@ -313,9 +339,10 @@ from gnn_ecommerce_tpu_torch.probes.kernels import (
     tile_segreduce_abs_sum,
     tile_segreduce_plain,
 )
-from gnn_ecommerce_tpu_torch.ops.topk_score import _mask_scores, topk_scores
+from gnn_ecommerce_tpu_torch.ops.topk_score import topk_scores
+from gnn_ecommerce_tpu_torch.runs import _load, serve_r4, serve_r5, serve_register_r5, serve_sustained_r3
 from gnn_ecommerce_tpu_torch.sampling.bpr import make_sampler_data
-from gnn_ecommerce_tpu_torch.serve import BatchingRecommender, RecommenderService, make_server
+from gnn_ecommerce_tpu_torch.serve import BatchingRecommender, RecommenderService
 from gnn_ecommerce_tpu_torch.serve.quantized import (
     QuantizedCache,
     int8_product_int_mm,
@@ -439,6 +466,11 @@ MESH_GRAD_REL = {"float32": 1e-5, "bfloat16": 2e-3}
 MESH_CLI_RECALL_TOL = 0.01
 # Phase 12's EDA step: the report's sections.
 EDA_SECTIONS = ("overview", "headline", "variables", "missing", "correlations", "sample")
+# Phase 17 (serve_load): the serving runs' protocols cut to fit the run
+# (the JAX scripts': a 20 s sustained window, 20 s serve_r4 windows, 5 s
+# serve_r5 slices with 6 measured pairs; the profiled window 5 s); clients,
+# request sizes and everything else as the scripts had them.
+SERVE_LOAD = {"sustained_s": 3.0, "profile_s": 2.0, "window_s": 2.0, "slice_s": 1.0, "reps": 2}
 # Phase 16 (bench): the benchmark's process must end within BENCH_TIMEOUT_S;
 # its line carries root bench.py's keys under "detail".
 BENCH_TIMEOUT_S = 600
@@ -1501,61 +1533,12 @@ def run_probe_mains(dev: torch.device, reps: int = 2) -> dict:
     return out
 
 
-def plain_topk(emb, ids, prepared, k):
-    """Reference answer: full scores, purchased items masked, torch.topk."""
-    n_users = prepared.n_users
-    scores = mm_f32(emb[ids], emb[n_users:].T)
-    s = prepared.sampler
-    slots = np.minimum(np.searchsorted(s.users, ids), len(s.users) - 1)
-    rows = np.flatnonzero(s.users[slots] == ids)
-    lo, hi = s.pos_indptr[slots[rows]], s.pos_indptr[slots[rows] + 1]
-    n = hi - lo
-    flat = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(n.sum())
-    scores[
-        torch.as_tensor(np.repeat(rows, n), device=scores.device),
-        torch.as_tensor(s.pos_flat[flat] - n_users, device=scores.device),
-    ] = -float("inf")
-    vals, idx = torch.topk(scores, k, dim=1)
-    return scores, vals.cpu(), idx.cpu()
-
-
-def check_answer(items, scores, vals, idx, rtol: float = 1e-6) -> int:
-    """Same top-K sets as the plain answer, except items tied with its k-th
-    score (within ``rtol``; 0 asks for an exact tie). Returns the rows that
-    differ by such ties."""
-    differ = 0
-    for row, got in enumerate(items):
-        want = set(idx[row].tolist())
-        if set(got) == want:
-            continue
-        differ += 1
-        kth = vals[row, -1].item()
-        for item in set(got) ^ want:
-            assert abs(scores[row, item].item() - kth) <= rtol * abs(kth), (row, item)
-    return differ
-
-
-def plain_quantized_topk(qc: QuantizedCache, ids, mask, k):
-    """Reference answer of the int8 path: the f32 product of the int8 rows
-    (exact), rescaled and masked as topk_scores_int8 does, torch.topk."""
-    dev = qc.user_q.device
-    ids_t = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=dev)
-    scores = int8_product_plain(qc.user_q[ids_t], qc.item_q) * qc.user_s[ids_t][:, None]
-    scores = _mask_scores(scores * qc.item_s[None, :], torch.as_tensor(mask, device=dev), "neginf")
-    vals, idx = torch.topk(scores, k, dim=1)
-    return scores, vals.cpu(), idx.cpu()
-
-
 def serve_requests(service, prepared: PreparedData, rng: np.random.Generator) -> tuple[dict, list]:
     """The REST server with the batcher over ``service``: per size (1, 8,
     64, 512 users, half of them buyers) WARMUP_REQUESTS untimed, then
     REQUESTS_PER_SIZE timed :predict requests. Returns (ms by size, the
     (ids, items) of every answer)."""
-    batcher = BatchingRecommender(service)
-    server = make_server(batcher, port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/v1/models/lightgcn_recommender:predict"
+    server = _load.Server(BatchingRecommender(service))
     buyers = prepared.sampler.users
     lat, answers = {}, []
     try:
@@ -1567,14 +1550,12 @@ def serve_requests(service, prepared: PreparedData, rng: np.random.Generator) ->
                     rng.integers(0, prepared.n_users, size // 2),
                 ])
                 t_req = time.perf_counter()
-                items = post(url, ids.tolist())["items"]
+                items = _load.predict(server.base, ids)
                 if i >= WARMUP_REQUESTS:
                     lat[size].append((time.perf_counter() - t_req) * 1e3)
                 answers.append((ids, items))
     finally:
-        server.shutdown()
-        server.server_close()
-    thread.join(timeout=30)
+        server.close()
     return lat, answers
 
 
@@ -1639,7 +1620,8 @@ def quantized_path(prepared: PreparedData, params: dict, svc, seed: int, f32_pct
         assert torch.equal(int8_product_int_mm(uq, qc.item_mm, n_items), int8_product_plain(uq, qc.item_q))
         vals, idx = topk_scores_int8(uq, us, qc.item_mm, qc.item_s, mask, 20)
         vals, idx = vals.cpu(), idx.cpu()
-        _, pvals, pidx = plain_quantized_topk(qc, ids, mask, 20)
+        pvals, pidx = torch.topk(_load.Reference(prepared, qcache=qc).scores(ids), 20, dim=1)
+        pvals, pidx = pvals.cpu(), pidx.cpu()
         assert torch.equal(vals, pvals), "int8 top-20 scores differ from the plain version's"
         moved = idx != pidx
         tied = torch.zeros_like(moved)
@@ -1665,11 +1647,10 @@ def quantized_path(prepared: PreparedData, params: dict, svc, seed: int, f32_pct
             times[f"topk_f32_{b}"] = time_ms(lambda: topk_scores(uf, items, mask[:b], 20))
         del vals, pvals, idx, pidx, fidx, moved, tied, items
     lat, answers = serve_requests(svc, prepared, np.random.default_rng(seed + 4))
-    differ = 0
-    with torch.no_grad():
-        for ids, items in answers:
-            assert len(items) == len(ids) and all(len(r) == 20 for r in items)
-            differ += check_answer(items, *plain_quantized_topk(qc, ids, svc._request_mask(ids), 20), rtol=0.0)
+    check = _load.AnswerCheck(20)
+    check.check([_load.Answer(ids, items, 0.0, 0.0) for ids, items in answers],
+                {"int8": _load.Reference(prepared, qcache=qc)})
+    differ = check.tie_rows
     print("  int8 ms: " + " ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     return (
         f"refresh {svc.last_refresh_s:.2f} s, K1 f32 launches {k1}; int8 rows and scales equal the "
@@ -1679,14 +1660,6 @@ def quantized_path(prepared: PreparedData, params: dict, svc, seed: int, f32_pct
         f"{len(answers)} answers checked ({differ} differ by exact ties); p50/p90/p99 ms int8 "
         f"{percentiles(lat)} (f32, phase 6: {f32_pct})"
     )
-
-
-def post(url: str, body) -> dict:
-    req = urllib.request.Request(
-        url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"}
-    )
-    with urllib.request.urlopen(req, timeout=120) as r:
-        return json.load(r)
 
 
 def layered_grad_f64(params, graph, cfg, users, pos, neg) -> torch.Tensor:
@@ -2796,6 +2769,62 @@ def check_bench_kernels(dev: torch.device) -> dict:
     return {row["name"]: row for row in (cast, k1)}
 
 
+def serve_load_path(svc, serve_ckpt: str) -> str:
+    """Phase 17: the four serving runs (``runs/``) on phase 4's service,
+    switched to f32 serving of phase 9's best checkpoint, and a second,
+    quantized service on the same checkpoint (its own B_ii), with the
+    protocols cut by SERVE_LOAD. Each run raises on a failed request or
+    an answer that is not the plain top-20 of the version that served it
+    (every answer is checked); each prints its JSON line. Returns the detail
+    line."""
+    dev = svc.device
+    t0 = time.perf_counter()
+    leaves, meta = load_checkpoint(serve_ckpt, BEST_NAME)
+    params = RecommenderService._checkpoint_params(leaves, meta, svc.cfg, dev)
+    svc.quantized = False
+    with torch.no_grad():
+        svc.refresh(params)
+    del leaves, params
+    load_s = time.perf_counter() - t0
+    svc_q, services = serve_r5.build_quantized(svc, serve_ckpt, BEST_NAME)
+    best = f"{serve_ckpt}/{BEST_NAME}"
+    cut = SERVE_LOAD
+    res = {
+        "sustained": serve_sustained_r3.run(svc, window_s=cut["sustained_s"], profile_s=cut["profile_s"]),
+        "serve_r4": serve_r4.run(svc, load_s, best, window_s=cut["window_s"]),
+        "serve_r5": serve_r5.run(svc, svc_q, best, slice_s=cut["slice_s"], reps=cut["reps"],
+                                 services={"f32_load_s": round(load_s, 1), **services}),
+        "register": serve_register_r5.run(svc, serve_ckpt, load_s),
+    }
+    del svc_q
+    for name, r in res.items():
+        print(f"  {name}: {json.dumps(r)}", flush=True)
+    reg, r5, sus = res["register"], res["serve_r5"], res["sustained"]
+    load = reg["under_load"]
+    assert reg["rollback_exact"] and load["rollback_exact"] and load["errors"] == 0
+    assert all(w["errors"] == 0 for w in res["serve_r4"]["windows"])
+    prof = sus["profile"]
+    effects = " ".join(
+        f"{key} {r5[key]['effect_a_over_b']}x{'' if r5[key]['effect_exceeds_spread'] else ' (within spread)'}"
+        for key in ("small_batched_vs_unbatched", "big_bypass_vs_coalesce", "big_int8_vs_f32",
+                    "small_batched_int8_vs_f32")
+    )
+    summary = res["serve_r4"]["summary"]
+    return (
+        f"f32 checkpoint load and refresh {load_s:.2f} s; quantized service {services}; sustained "
+        f"8x64 {sus['users_per_s']} users/s p50/p99 {sus['latency_ms']['p50']}/"
+        f"{sus['latency_ms']['p99']} ms, profiled: copy wait {prof['copy_wait_ms_per_request']} ms a "
+        f"request ({prof['copy_wait_share_of_latency']} of latency), card busy "
+        f"{prof['device_busy_share']}; serve_r4 batched/unbatched users/s big "
+        f"{summary['big']['throughput_improvement']}x small {summary['small']['throughput_improvement']}x; "
+        f"serve_r5 {effects}; int8 top-20 overlap {r5['int8_accuracy']['top20_overlap_mean']}; "
+        f"register {reg['register_s']} s idle, {load['register_s']} s under load (p99 in its window "
+        f"{load['register_window']['p99_ms']} ms, outside {load['outside_register']['p99_ms']} ms; "
+        f"answers by version {load['answers_by_version']}); answers checked "
+        f"{sum(r['answers']['checked'] for r in res.values())}, none wrong"
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the corpus and weights")
@@ -2808,10 +2837,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip()
+    smi = _load.card(dev)
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
     kind = torch.cuda.get_device_name(0)
@@ -2950,10 +2976,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lat, answers = serve_requests(svc, prepared, np.random.default_rng(args.seed + 1))
     path_launches["serve"] = read_launches()
-    with torch.no_grad():
-        for ids, items in answers:
-            assert len(items) == len(ids) and all(len(r) == 20 for r in items)
-            check_answer(items, *plain_topk(emb, ids, prepared, 20))
+    _load.AnswerCheck(20).check(
+        [_load.Answer(ids, items, 0.0, 0.0) for ids, items in answers],
+        {"f32": _load.Reference(prepared, emb)},
+    )
     f32_pct = percentiles(lat)
     phase(
         6, "serve", t0,
@@ -3042,7 +3068,8 @@ def main(argv=None) -> int:
         f"{margins['layered_f32']:.3f} (not checked); K1 f32 launches forward "
         f"{fwd_launches} backward {bwd_launches}",
     )
-    del leaf, ref, g_batch, g_full, g_layered, loss, svc, fb
+    # svc stays: phase 17 serves through it (phase 6's batcher holds it anyway).
+    del leaf, ref, g_batch, g_full, g_layered, loss, fb
     torch.cuda.empty_cache()
 
     # Step breakdown (the port of scripts/profile_step.py) on the main
@@ -3105,6 +3132,9 @@ def main(argv=None) -> int:
     # Training path: train() and a resume, as a user runs them.
     t0 = time.perf_counter()
     reset_launches()
+    # Phase 17 serves the best checkpoint of the first two epochs and
+    # registers the resumed third's last (hard links: a save replaces files).
+    serve_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
         config = TrainConfig(
             latent_dim=DIM, n_layers=LAYERS, batch_size=BATCH, lr=LR, decay=DECAY,
@@ -3120,12 +3150,15 @@ def main(argv=None) -> int:
         for name in (BEST_NAME, LAST_NAME):
             leaves, meta = load_checkpoint(ckpt, name)
             assert meta["num_leaves"] == 4 and leaves[0].shape == (cfg.num_nodes, DIM), meta
+        del leaves
+        shutil.copytree(f"{ckpt}/{BEST_NAME}", f"{serve_tmp.name}/{BEST_NAME}", copy_function=os.link)
         # The resume writes back to back (duty 1.0); the first run idled a
         # write's time after each (the default 0.5).
         resumed = train(
             prepared, dataclasses.replace(config, epochs=3, resume=True, async_save_duty=1.0), device=dev
         )
         assert [h["epoch"] for h in resumed.history] == [2], resumed.history
+        shutil.copytree(f"{ckpt}/{LAST_NAME}", f"{serve_tmp.name}/{LAST_NAME}", copy_function=os.link)
         with open(f"{ckpt}/train_log.jsonl") as f:
             log = [json.loads(line) for line in f]
     path_launches["train"] = read_launches()
@@ -3243,6 +3276,17 @@ def main(argv=None) -> int:
         f"max_abs_err {bench_rows['segreduce_bf16']['max_abs_err']:.3e} kernel_ms "
         f"{bench_rows['segreduce_bf16']['ms']:.4f}, its cast exact",
     )
+
+    # The serving runs under concurrent load, on phase 4's service and
+    # phase 9's checkpoints: counts from 0 here.
+    t0 = time.perf_counter()
+    reset_launches()
+    detail = serve_load_path(svc, serve_tmp.name)
+    path_launches["serve_load"] = read_launches()
+    serve_tmp.cleanup()
+    k1 = path_launches["serve_load"]["segreduce_f32"]
+    assert k1 >= 1, "the serving runs' refreshes and registers did not launch K1 f32"
+    phase(17, "serve_load", t0, f"{detail}; K1 f32 launches {k1}")
 
     t0 = time.perf_counter()
     names = (*KERNELS, TO_USERS, *(f"{name}_accumulate" for name in ACCUMULATE))

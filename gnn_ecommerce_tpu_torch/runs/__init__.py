@@ -1,0 +1,30 @@
+"""Ports of the JAX package's serving runs (``scripts/serve_*.py``).
+
+Each module mirrors one script under the script's own name and prints one
+JSON line under the keys of the file that script wrote, plus the card's name
+and power limit and a few keys of its own (each module's ``EXTRA_KEYS``):
+
+- ``serve_sustained_r3``: ``SERVE_r3.json``'s ``sustained_http_load``, 8
+  clients x 64 users for 20 s against the service without the batcher, and
+  a profile of one more window;
+- ``serve_r4``: ``SERVE_r4.json``, 20 s windows alternating the batched and
+  the unbatched server, big (8 x 64) and small (16 x 4) requests;
+- ``serve_r5``: ``SERVE_r5.json``, interleaved 5 s slices: small requests
+  batched against unbatched, big requests through the ``solo_min`` bypass
+  against forced coalescing, int8 against f32, and the int8 top-20's
+  overlap with the f32 one;
+- ``serve_register_r5``: ``scripts/serve_register_r5.json``, a second
+  checkpoint registered, flipped to, rolled back and unregistered through
+  the HTTP management API, idle and under 8 x 64 clients (``under_load``).
+
+``_load`` holds the load they share: client threads, windows, the
+interleaved A/B protocol and the check that every answer is the plain
+top-K of the version that was active. Each module's ``run`` takes a built
+:class:`~gnn_ecommerce_tpu_torch.serve.RecommenderService` and its protocol
+constants as arguments; its ``main`` loads a checkpoint:
+
+    python -m gnn_ecommerce_tpu_torch.runs.serve_r5 -d DATA_DIR -c CKPT_DIR [--out x.json]
+
+They run on ``cuda`` unless ``--device cpu`` is given, and raise on a failed
+request or a wrong answer (non-zero exit, no JSON).
+"""

@@ -41,6 +41,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from .service import RecommenderService
 
 MODEL_NAME = "lightgcn_recommender"
+# The listen backlog. The stdlib server's is 5: with more clients connecting
+# at once the kernel drops handshakes beyond it (the client retries after a
+# 1 s timeout) and resets some connections. Every request opens a connection
+# (HTTP/1.0), so 16 concurrent clients overflow 5. A deliberate difference
+# from the JAX server, which keeps the stdlib's.
+LISTEN_BACKLOG = 128
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    request_queue_size = LISTEN_BACKLOG
 
 
 def make_server(service: RecommenderService, host: str = "127.0.0.1", port: int = 8080):
@@ -204,7 +214,7 @@ def make_server(service: RecommenderService, host: str = "127.0.0.1", port: int 
             except Exception as e:  # pragma: no cover - defensive
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
-    return ThreadingHTTPServer((host, port), Handler)
+    return _HTTPServer((host, port), Handler)
 
 
 def serve_forever(service: RecommenderService, host: str = "0.0.0.0", port: int = 8080):

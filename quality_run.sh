@@ -6,7 +6,10 @@
 # directory; then the saved artifact's hash and the popularity baseline;
 # then cli.infer on the best checkpoint (P/R@20 over the val and test users,
 # shortest paths of the first 2,000 hit users, as the TPU's INFER_r4.json
-# was made).
+# was made); then the four serving runs of gnn_ecommerce_tpu_torch/runs/
+# at the JAX scripts' protocols on the best checkpoint (serve_register_r5
+# registers the last), each in its own process, each JSON line to
+# OUT_DIR/<run>.json and its progress to OUT_DIR/<run>.err.
 #
 #   bash quality_run.sh [OUT_DIR]      # default OUT_DIR: quality_run_out/
 #   bash quality_run.sh --hash DIR     # hash a prepared-artifact directory
@@ -19,7 +22,8 @@
 #   from gnn_ecommerce_tpu.data.artifacts import save_prepared
 #   save_prepared(build_prepared()[0], 'jax_prepared')"
 # OUT_DIR receives train.out (the CLI's output), train_log.jsonl, the
-# artifact's manifest.json, infer.out and the path table hit_df.csv.
+# artifact's manifest.json, infer.out, the path table hit_df.csv and the
+# serving runs' serve_*.json and serve_*.err.
 set -euo pipefail
 REPO=$(cd "$(dirname "$0")" && pwd)
 export PYTHONPATH="$REPO"
@@ -82,3 +86,9 @@ python -m gnn_ecommerce_tpu_torch.cli.infer -d data/prepared -c model-checkpoint
 T3=$(date +%s.%N)
 python -c "print('infer_wall_s', $T3 - $T2)"
 cp recs/hit_df.csv "$OUT/"
+for run in serve_sustained_r3 serve_r4 serve_r5 serve_register_r5; do
+  T=$(date +%s.%N)
+  python -m gnn_ecommerce_tpu_torch.runs.$run -d data/prepared -c model-checkpoints \
+    --out "$OUT/$run.json" 2> "$OUT/$run.err" || { tail -n 40 "$OUT/$run.err"; exit 1; }
+  python -c "print('${run}_wall_s', $(date +%s.%N) - $T)"
+done
