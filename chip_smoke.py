@@ -210,9 +210,30 @@ Phases, one printed line each (plus detail lines):
               relative at ties, int8 exact), under the swaps one version's
               in all its rows, and the rollback exact; K1 f32 launched by
               the refreshes and registers
+ 18 quality   (runs after 17) the quality runs of runs/ (the ports of
+              scripts/svd_full_r5.py, bprmf_full_r5.py, skyline_full_r3.py,
+              movielens_bench.py, config3_subsample_r3.py and
+              train_full_r5b.py), cut by QUALITY_EPOCHS: on phase 12's 1/10
+              corpus, built anew (its popularity baseline the TPU's to
+              1e-5), the SVD at 2 epochs with both metrics (surprise-parity
+              P/R@10 on the held-out edges, full-ranking P/R@20), BPR-MF at
+              2 epochs, config 3 at 1 epoch and the 2-hop skyline on the
+              first 512 val users, each user's recall held against the
+              script's scipy arithmetic on the host (equal but where the
+              20th and 21st scores tie; the tied users counted); MovieLens
+              whole, held to its full bars (runs/bars.py: LightGCN val and
+              test R@20 and the SVD CV P/R@10 within 0.02 of the TPU's,
+              LightGCN above the SVD ranker); then train_full_r5b at seed
+              1 for 1 epoch on phase 2's corpus (the shapes at which phase
+              3 held K1 bf16 and its cast), its K1 bf16 and cast launches
+              counted; every line printed, every number in it finite, and
+              the cut runs held to QUALITY_CUT_BARS (the SVD's parity P/R
+              above 0 and its full ranking below popularity, BPR-MF, config
+              3 and train_full_r5b at least a multiple of popularity)
  11 kernels   one JSON line of the port's kernels, with their launches on
               the paths of phases 4-6, 13, 14 and 15 (every rank's), 7, 8,
-              9, 10, 12 (train, infer and svd apart), 16 and 17 (each counted
+              9, 10, 12 (train, infer and svd apart), 16, 17 and 18 (the
+              triangle's runs and train_full_r5b apart; each counted
               from 0 just before the path and read just after), K1's with
               its accumulate launches (also counted apart); K1's rows
               (and its cast's) also carry each mesh rank's shapes and times
@@ -231,6 +252,7 @@ import filecmp
 import hashlib
 import io
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -254,7 +276,7 @@ from gnn_ecommerce_tpu_torch.cli import svd as svd_cli
 from gnn_ecommerce_tpu_torch.cli import train as train_cli
 from gnn_ecommerce_tpu_torch.data.artifacts import load_prepared
 from gnn_ecommerce_tpu_torch.data.events import EVENT_TYPE_WEIGHTS_V1, events_to_edges, read_csv
-from gnn_ecommerce_tpu_torch.data.prepare import CsrList, EvalSplit, PreparedData, SamplerArrays
+from gnn_ecommerce_tpu_torch.data.prepare import CsrList, EvalSplit, PreparedData, SamplerArrays, prepare_splits
 from gnn_ecommerce_tpu_torch.data.synthetic import synthetic_events
 from gnn_ecommerce_tpu_torch.device import mm_f32, resolve_device
 from gnn_ecommerce_tpu_torch.eval.baselines import popularity_recall_at_k
@@ -340,7 +362,21 @@ from gnn_ecommerce_tpu_torch.probes.kernels import (
     tile_segreduce_plain,
 )
 from gnn_ecommerce_tpu_torch.ops.topk_score import topk_scores
-from gnn_ecommerce_tpu_torch.runs import _load, serve_r4, serve_r5, serve_register_r5, serve_sustained_r3
+from gnn_ecommerce_tpu_torch.runs import (
+    _load,
+    bprmf_full_r5,
+    config3_subsample_r3,
+    full_corpus_r3,
+    movielens_bench,
+    serve_r4,
+    serve_r5,
+    serve_register_r5,
+    serve_sustained_r3,
+    bars,
+    skyline_full_r3,
+    svd_full_r5,
+    train_full_r5b,
+)
 from gnn_ecommerce_tpu_torch.sampling.bpr import make_sampler_data
 from gnn_ecommerce_tpu_torch.serve import BatchingRecommender, RecommenderService
 from gnn_ecommerce_tpu_torch.serve.quantized import (
@@ -471,6 +507,20 @@ EDA_SECTIONS = ("overview", "headline", "variables", "missing", "correlations", 
 # serve_r5 slices with 6 measured pairs; the profiled window 5 s); clients,
 # request sizes and everything else as the scripts had them.
 SERVE_LOAD = {"sustained_s": 3.0, "profile_s": 2.0, "window_s": 2.0, "slice_s": 1.0, "reps": 2}
+# Phase 18 (quality): the quality runs of runs/ cut to fit the script (the
+# scripts': SVD 20 epochs, BPR-MF 20, config 3 20, train_full_r5b 20 at
+# seed 42); the skyline on the first SKYLINE_USERS val users of phase 12's
+# corpus, held user by user against the script's scipy arithmetic. Config
+# 3's popularity baseline must equal the TPU's (the corpus is JAX's bit for
+# bit) to 1e-5, MovieLens (run whole) meet its full bars, and each cut run
+# reach the multiple of its corpus's val popularity in QUALITY_CUT_BARS:
+# at these cuts the H100 reads BPR-MF 0.0110 and config 3 0.302 (popularity
+# 0.0666), train_full_r5b 0.150 (phase 2's corpus: popularity 0.157), so
+# that half of each reading misses its bar (PERF.md section 6).
+QUALITY_EPOCHS = {"svd": 2, "bprmf": 2, "config3": 1, "train_full_r5b": 1}
+QUALITY_SEED = 1
+SKYLINE_USERS = 512
+QUALITY_CUT_BARS = {"bprmf": 0.1, "config3": 3.0, "train_full_r5b": 0.6}
 # Phase 16 (bench): the benchmark's process must end within BENCH_TIMEOUT_S;
 # its line carries root bench.py's keys under "detail".
 BENCH_TIMEOUT_S = 600
@@ -2689,7 +2739,7 @@ def finite_numbers(tree, where: str = "") -> None:
         for n, v in enumerate(tree):
             finite_numbers(v, f"{where}[{n}]")
     elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
-        assert np.isfinite(tree), f"bench line: {where} = {tree}"
+        assert np.isfinite(tree), f"{where} = {tree}"
 
 
 def bench_path(kind: str) -> tuple[dict, dict]:
@@ -2823,6 +2873,114 @@ def serve_load_path(svc, serve_ckpt: str) -> str:
         f"answers by version {load['answers_by_version']}); answers checked "
         f"{sum(r['answers']['checked'] for r in res.values())}, none wrong"
     )
+
+
+def first_users(split: EvalSplit, n: int) -> EvalSplit:
+    """The first ``n`` users of ``split`` (all of them if it has fewer)."""
+    n = min(n, len(split.user_ids))
+
+    def head(csr: CsrList) -> CsrList:
+        return CsrList(csr.indptr[: n + 1], csr.values[: csr.indptr[n]])
+
+    return EvalSplit(split.user_ids[:n], head(split.truth), head(split.train_mask))
+
+
+def quality_path(prepared: PreparedData, work: str, dev: torch.device) -> tuple[str, dict, dict]:
+    """Phase 18: the quality runs of ``runs/``, cut by QUALITY_EPOCHS.
+    On phase 12's 1/10 corpus (config3_subsample_r3's, built anew): the SVD
+    with both metrics, BPR-MF, config 3 and the skyline (the first
+    SKYLINE_USERS val users against skyline_full_r3.skyline_scipy: equal
+    recall but where the 20th and 21st scores tie); MovieLens whole; then
+    train_full_r5b at QUALITY_SEED on phase 2's corpus. Launches are
+    counted from 0 for the triangle's runs and for train_full_r5b apart.
+    Raises on a failed check or a missed bar (MovieLens's full bars, the
+    cut runs' QUALITY_CUT_BARS); returns (detail line, triangle launches,
+    train_full_r5b launches)."""
+    assert config3_subsample_r3.CORPUS == CLI_CORPUS
+    ep = QUALITY_EPOCHS
+    reset_launches()
+    t0 = time.perf_counter()
+    tr, va, te = config3_subsample_r3.build_splits()
+    heldout = full_corpus_r3.heldout_edges(tr, va, te)
+    small = prepare_splits(tr, va, te)
+    del tr, va, te
+    t_corpus = time.perf_counter() - t0
+    pop = popularity_recall_at_k(small, k=20)
+    cut = [bars.near("config 3 popularity val R@20", pop, bars.TPU["config3_popularity"], 1e-5)]
+    times, lines = {}, {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        lines[name] = fn()
+        times[name] = time.perf_counter() - t
+        print(f"  {name}: {json.dumps(lines[name])}", flush=True)
+        finite_numbers(lines[name], name)
+        return lines[name]
+
+    svd = timed("svd_full_r5", lambda: svd_full_r5.run(
+        small, heldout, cfg=dataclasses.replace(svd_full_r5.CONFIG, n_epochs=ep["svd"]), device=dev))
+    assert all(svd["surprise_parity"][s]["edges"] == len(heldout[s]) for s in heldout)
+    cut += [bars.Bar(f"SVD parity {s} {m}@10 above 0", svd["surprise_parity"][s][f"{m}@10"],
+                     lo=math.nextafter(0.0, 1.0))
+            for s in ("val", "test") for m in ("precision", "recall")]
+    cut.append(bars.Bar("SVD full-ranking val R@20 below popularity",
+                        svd["full_ranking"]["val"]["recall@20"], hi=math.nextafter(pop, 0.0)))
+    bpr = timed("bprmf_full_r5", lambda: bprmf_full_r5.run(
+        small, bprmf_full_r5.config(os.path.join(work, "bprmf"), ep["bprmf"]), device=dev))
+    assert len(bpr["quality"]["val_recall_curve"]) == ep["bprmf"]
+    cut.append(bars.Bar(f"BPR-MF best val R@20 at least {QUALITY_CUT_BARS['bprmf']}x popularity",
+                        bpr["quality"]["best_val_recall@20"], lo=QUALITY_CUT_BARS["bprmf"] * pop))
+    c3 = timed("config3_subsample_r3", lambda: config3_subsample_r3.run(
+        small, config3_subsample_r3.config(os.path.join(work, "config3"), ep["config3"]), device=dev))
+    assert c3["popularity_baseline_val_recall_at_20"] == round(pop, 5)
+    cut.append(bars.Bar(f"config 3 best val R@20 at least {QUALITY_CUT_BARS['config3']}x popularity",
+                        c3["best_val_recall_at_20"], lo=QUALITY_CUT_BARS["config3"] * pop))
+
+    t = time.perf_counter()
+    users = first_users(small.val, SKYLINE_USERS)
+    sky = skyline_full_r3.skyline(small, users, device=dev)
+    want = skyline_full_r3.skyline_scipy(small, users)
+    differ = sky.recall != want
+    assert not (differ & ~sky.tied).any(), np.flatnonzero(differ & ~sky.tied)
+    times["skyline_full_r3"] = time.perf_counter() - t
+    sky_line = (f"skyline on {len(users.user_ids)} val users {sky.value:.5f} (scipy {want.mean():.5f}; "
+                f"tied at the 20th {int(sky.tied.sum())}, of which differing {int(differ.sum())})")
+
+    ml = timed("movielens_bench", lambda: movielens_bench.run(os.path.join(work, "movielens"), dev))
+    cv = ml["svd_cv_reference_protocol"]
+    bars.hold(ml, bars.movielens_bench(ml))
+    triangle = read_launches()
+
+    reset_launches()
+    r5b = timed("train_full_r5b", lambda: train_full_r5b.run(
+        prepared, train_full_r5b.config(os.path.join(work, "r5b"), QUALITY_SEED, ep["train_full_r5b"]),
+        N_EDGES, device=dev))
+    r5b_launches = read_launches()
+    assert r5b["seed"] == QUALITY_SEED and len(r5b["per_epoch"]) == ep["train_full_r5b"]
+    r5b_pop = r5b["quality"]["popularity_baseline_val_recall_at_20"]
+    cut.append(bars.Bar(
+        f"train_full_r5b best val R@20 at least {QUALITY_CUT_BARS['train_full_r5b']}x popularity",
+        r5b["quality"]["best_val_recall"], lo=QUALITY_CUT_BARS["train_full_r5b"] * r5b_pop))
+    bars.hold({}, cut)
+    for name in ("segreduce_bf16", "segreduce_cast_bf16"):
+        assert r5b_launches[name] >= 1, f"train_full_r5b did not launch {name}"
+    lg = ml["same_split_top20"]
+    detail = (
+        f"1/10 corpus {small.n_users}x{small.n_items} in {t_corpus:.1f} s, popularity {pop:.6f}; "
+        f"svd {ep['svd']} epochs parity val P/R@10 {svd['surprise_parity']['val']['precision@10']:.5f}/"
+        f"{svd['surprise_parity']['val']['recall@10']:.5f} full-ranking val R@20 "
+        f"{svd['full_ranking']['val']['recall@20']:.5f}; bprmf {ep['bprmf']} epochs curve "
+        f"{bpr['quality']['val_recall_curve']}; config3 {ep['config3']} epoch val R@20 "
+        f"{c3['best_val_recall_at_20']} test {c3['test_recall_at_20']}; {sky_line}; movielens SVD CV "
+        f"P/R@10 {cv['precision_mean']:.4f}/{cv['recall_mean']:.4f}, ranker val R@20 "
+        f"{lg['svd_ranker']['val']['recall']:.5f}, LightGCN val/test R@20 "
+        f"{lg['lightgcn']['val']['recall']:.5f}/{lg['lightgcn']['test']['recall']:.5f}; train_full_r5b "
+        f"seed {QUALITY_SEED} {ep['train_full_r5b']} epoch val R@20 "
+        f"{r5b['quality']['best_val_recall']:.6f} epoch_s {r5b['per_epoch'][0]['epoch_s']:.2f}; "
+        f"{len(cut)} cut bars held; seconds "
+        + " ".join(f"{k} {v:.1f}" for k, v in times.items())
+    )
+    return detail, triangle, r5b_launches
 
 
 def main(argv=None) -> int:
@@ -3287,6 +3445,18 @@ def main(argv=None) -> int:
     k1 = path_launches["serve_load"]["segreduce_f32"]
     assert k1 >= 1, "the serving runs' refreshes and registers did not launch K1 f32"
     phase(17, "serve_load", t0, f"{detail}; K1 f32 launches {k1}")
+
+    # The quality runs (the triangle on phase 12's corpus, MovieLens, then
+    # train_full_r5b on phase 2's corpus): counts from 0 for each part.
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as work:
+        detail, path_launches["quality_triangle"], path_launches["quality"] = quality_path(
+            prepared, work, dev
+        )
+    k1 = {k: path_launches["quality"][k] for k in ("segreduce_bf16", "segreduce_cast_bf16")}
+    phase(18, "quality", t0, f"{detail}; launches: train_full_r5b {k1}, the triangle's runs "
+          f"{ {k: v for k, v in path_launches['quality_triangle'].items() if v} }")
 
     t0 = time.perf_counter()
     names = (*KERNELS, TO_USERS, *(f"{name}_accumulate" for name in ACCUMULATE))

@@ -119,10 +119,15 @@ def init_distributed(
     }
 
 
+def joined_world() -> bool:
+    """Whether this process joined a torch.distributed world (of any size)."""
+    return dist.is_available() and dist.is_initialized()
+
+
 def world_rank() -> tuple[int, int]:
     """(world size, rank) of the initialized torch.distributed world, or
     (1, 0) without one."""
-    if dist.is_available() and dist.is_initialized():
+    if joined_world():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
 

@@ -1,8 +1,11 @@
-"""Ports of the JAX package's serving runs (``scripts/serve_*.py``).
+"""Ports of the JAX package's serving runs (``scripts/serve_*.py``) and of
+its quality runs.
 
 Each module mirrors one script under the script's own name and prints one
 JSON line under the keys of the file that script wrote, plus the card's name
-and power limit and a few keys of its own (each module's ``EXTRA_KEYS``):
+and power limit and a few keys of its own (each module's ``EXTRA_KEYS``).
+
+The serving runs:
 
 - ``serve_sustained_r3``: ``SERVE_r3.json``'s ``sustained_http_load``, 8
   clients x 64 users for 20 s against the service without the batcher, and
@@ -27,4 +30,26 @@ constants as arguments; its ``main`` loads a checkpoint:
 
 They run on ``cuda`` unless ``--device cpu`` is given, and raise on a failed
 request or a wrong answer (non-zero exit, no JSON).
+
+The quality runs, each with ``run(...)`` and ``--device`` and ``--out``,
+and those that write checkpoints or files ``--work`` too (everything but
+``--out`` is written under ``--work``, a temporary directory by default):
+
+- ``full_corpus_r3``: the full-scale clustered corpus, its held-out edge
+  lists and its saved artifact (``-o DIR``), which the runs below reuse
+  with ``-d DIR``;
+- ``svd_full_r5``: ``SVD_FULL_r5.json``, the SVD's surprise-parity and
+  full-ranking metrics on the full corpus;
+- ``bprmf_full_r5``: ``BPRMF_FULL_r5.json``, LightGCN at 0 layers;
+- ``skyline_full_r3``: ``scripts/skyline_full_r3.json``, the weighted 2-hop
+  co-occurrence skyline;
+- ``movielens_bench``: ``MOVIELENS_r3.json`` (BASELINE config 2);
+- ``config3_subsample_r3``: ``scripts/config3_subsample_r3.json`` (config 3);
+- ``train_full_r5b``: ``TRAIN_FULL_r5b.json``, the main configuration's
+  20 epochs, ``--seed`` setting the training's seed alone.
+
+    python -m gnn_ecommerce_tpu_torch.runs.train_full_r5b -d DATA_DIR --seed 1 [--out x.json]
+
+``bars`` holds each quality run's line to the TPU's numbers: a missed bar
+raises (non-zero exit, no JSON).
 """

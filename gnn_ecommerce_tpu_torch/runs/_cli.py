@@ -1,20 +1,33 @@
-"""The serving runs' shared command line.
+"""The runs' shared command line.
+
+The serving runs:
 
     python -m gnn_ecommerce_tpu_torch.runs.<name> -d DATA_DIR -c CKPT_DIR
         [--checkpoint-name LightGCN_best] [--device cuda] [--out x.json]
 
-Loads the prepared artifact and the checkpoint into a
+load the prepared artifact and the checkpoint into a
 :class:`RecommenderService` on ``--device`` (``cuda`` by default; the CPU
-only when asked: without a card the load raises), times that load, runs the
-run and prints its result as one JSON line (progress goes to stderr).
+only when asked: without a card the load raises), time that load, run the
+run and print its result as one JSON line (progress goes to stderr).
+
+The quality runs take ``--device`` and ``--out`` from
+:func:`quality_parser`, and those that write checkpoints or files
+``--work`` too (a directory for what the run writes besides ``--out``: a
+temporary one by default, removed at the end); they count the kernels'
+launches of their run with :func:`launches_since`, hold their line to
+their bars (``bars.hold``) and print it through :func:`emit`.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import tempfile
 import time
 
 from ..device import resolve_device
+from ..ops._kernels import launch_counts
 from ..serve import RecommenderService
 from ..train.checkpoint import BEST_NAME
 from ._load import log
@@ -38,13 +51,50 @@ def cli(doc: str, argv, run) -> int:
     load_s = time.perf_counter() - t0
     log(f"service up in {load_s:.1f} s on {dev} ({svc.prepared.n_users}x{svc.prepared.n_items}, "
         f"dim {svc.cfg.embedding_dim})")
-    text = json.dumps(run(svc, load_s, args))
+    return emit(run(svc, load_s, args), args.out)
+
+
+def emit(result: dict, out: str | None) -> int:
+    """Print ``result`` as one JSON line (and write it to ``out``)."""
+    text = json.dumps(result)
     print(text, flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(text + "\n")
     return 0
 
 
+def quality_parser(doc: str, work: bool = False) -> argparse.ArgumentParser:
+    """The quality runs' parser: ``--device``, ``--out`` and, with
+    ``work``, ``--work``."""
+    ap = argparse.ArgumentParser(description=doc.split("\n")[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--out", help="also write the JSON line to this path")
+    if work:
+        ap.add_argument("--work", help="directory for checkpoints and files (default: a temporary one)")
+    return ap
+
+
+@contextlib.contextmanager
+def work_dir(path: str | None):
+    """``path`` (made if missing), or a temporary directory removed at the end."""
+    if path:
+        os.makedirs(path, exist_ok=True)
+        yield path
+        return
+    with tempfile.TemporaryDirectory(prefix="quality_run_") as tmp:
+        yield tmp
+
+
 def checkpoint_of(args) -> str:
     return f"{args.checkpoint_dir}/{args.checkpoint_name}"
+
+
+@contextlib.contextmanager
+def launches_since():
+    """A dict that holds, once the block ends, the kernels' launches made in
+    it: each ``ops._kernels.launch_counts`` key whose count moved."""
+    before = launch_counts()
+    out: dict = {}
+    yield out
+    out.update({k: n - before[k] for k, n in launch_counts().items() if n != before[k]})

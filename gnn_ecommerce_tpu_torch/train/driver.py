@@ -4,16 +4,19 @@ checkpointing, structured logging and resume.
 Counterpart of ``gnn_ecommerce_tpu/train/driver.py``: on one device the
 layered branch (``fast_bipartite="off"``) and the fast branches (``"f32"``
 exact, ``"bf16"`` the main configuration) with the batched train forward
-``fast_batch_embeddings``; on a mesh (``mesh_devices`` > 1, one
-``torch.distributed`` process per device, every process running this
-driver) the JAX driver's three branches: ``partition="edge"`` with the fast
+``fast_batch_embeddings``; on a mesh (one ``torch.distributed`` process
+per device, every process running this driver) the JAX driver's three
+branches: ``partition="edge"`` with the fast
 edge partition (``parallel/edge_partition_fast.py``) or, with
 ``fast_bipartite="off"``, the explicit one (``parallel/edge_partition.py``),
 and ``partition="gspmd"`` (``parallel/sharded_train.py``), each evaluated
 by ``parallel/sharded_eval.py``. On a mesh, rank 0 alone logs and writes
 checkpoints, which hold the unpadded, unified table of the one-device run
 (each rank's layout is gathered for them, so every rank holds what rank 0
-writes); saves are synchronous, and every flush is a barrier. As there:
+writes); saves are synchronous, and every flush is a barrier. A process
+that joined a world trains on its mesh even when the world has one rank
+(``cli.train --distributed --mesh 1``); the JAX driver runs one device
+whenever ``mesh_devices`` is 1. As there:
 - the final test evaluation uses the best epoch's params;
 - every epoch's losses and metrics go to a JSONL log;
 - resume restores params, Adam state and the epoch counter from LAST, and
@@ -54,7 +57,7 @@ from ..eval.evaluate import build_eval_buckets, evaluate_bucketed
 from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig, get_embedding, init_params
 from ..ops.bipartite import build_fast_bipartite, fast_batch_embeddings, fast_get_embedding
-from ..parallel.distributed import barrier, world_rank
+from ..parallel.distributed import barrier, joined_world, world_rank
 from ..sampling.bpr import make_sampler_data
 from .checkpoint import (
     BEST_NAME, LAST_NAME, load_checkpoint, restore_into, save_checkpoint,
@@ -340,7 +343,10 @@ def _train_impl(
         )
     if config.fast_bipartite not in ("off", "f32", "bf16"):
         raise ValueError(f"fast_bipartite must be off, f32 or bf16: {config.fast_bipartite!r}")
-    if n_mesh > 1 and config.partition not in ("gspmd", "edge"):
+    # A process that joined a torch.distributed world trains on the world's
+    # mesh, a world of 1 included; without a world, on one device.
+    on_mesh = n_mesh > 1 or joined_world()
+    if on_mesh and config.partition not in ("gspmd", "edge"):
         raise ValueError(f"partition must be gspmd or edge: {config.partition!r}")
     is_main = rank == 0
     t_setup0 = time.perf_counter()
@@ -362,7 +368,7 @@ def _train_impl(
     # the one-device layered branch propagates over the graph on the device.
     graph = build_graph(
         prepared.edge_user, prepared.edge_item_node, prepared.edge_weight,
-        n_users, n_items, items_offset=True, device="cpu" if fast or n_mesh > 1 else dev,
+        n_users, n_items, items_offset=True, device="cpu" if fast or on_mesh else dev,
     )
     num_edges, num_arcs = len(prepared.edge_user), int(graph.src.shape[0])
     sdata = make_sampler_data(prepared.sampler, n_users, n_items, dev)
@@ -409,7 +415,7 @@ def _train_impl(
     bf16 = config.fast_bipartite == "bf16"
     mode = "bfloat16" if bf16 else "float32"
     edge_cap = config.batch_edge_cap or max(64 * config.batch_size, 8192)
-    if n_mesh > 1:
+    if on_mesh:
         mesh, step_graph, step, compute_embedding, ckpt_view, post_restore, params, opt_state = (
             _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch, n_mesh,
                          dev, edge_cap, log, build_with_retry)

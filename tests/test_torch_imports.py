@@ -37,6 +37,8 @@ def test_every_module_imports_without_jax():
         "parallel", "parallel.mesh", "parallel.distributed", "parallel.edge_partition_fast",
         "parallel.sharded_eval", "parallel.sharded_train", "parallel.edge_partition",
         "ops.spmm_sharded", "data.eda", "data.profile", "cli.eda", "bench",
+        "runs.full_corpus_r3", "runs.svd_full_r5", "runs.bprmf_full_r5", "runs.skyline_full_r3",
+        "runs.movielens_bench", "runs.config3_subsample_r3", "runs.train_full_r5b", "runs.bars",
     ):
         assert f"gnn_ecommerce_tpu_torch.{name}" in modules
     code = (
