@@ -230,9 +230,26 @@ Phases, one printed line each (plus detail lines):
               the cut runs held to QUALITY_CUT_BARS (the SVD's parity P/R
               above 0 and its full ranking below popularity, BPR-MF, config
               3 and train_full_r5b at least a multiple of popularity)
+ 19 rehearsal_sweeps (runs after 8) the ports of the last three JAX
+              scripts, cut: real_data_rehearsal at 60,000 rows, --quick
+              (five Kaggle-schema monthly CSVs, their rows but the
+              sessions JAX's by digest, their concatenation,
+              cli.eda, cli.preprocess, cli.train, cli.infer, one REST
+              predict: 20 items), K1 f32 launched by its service's refresh
+              and then held on that plan; heavy_k_sweep_r3 on phase 2's
+              split at heads of 0, 8,192 and 32,768 users (2 timed calls a
+              direction, each output held to an f32 torch.sparse.mm within
+              its bf16 bound, K1 bf16 and its cast launched at every K and
+              held on each K's plans); depth_dim_sweep_r3 on phase 2's graph
+              and phase 5's operator: the fast forward at dim {80, 90} x
+              layers {4, 5} (2 timed calls, each held to the layered f32
+              forward within phase 5's bound, K1 bf16 and its cast launched
+              at every corner) and the layered forward at 4 layers, dim 80;
+              then K1 bf16 held on each dim's table
  11 kernels   one JSON line of the port's kernels, with their launches on
               the paths of phases 4-6, 13, 14 and 15 (every rank's), 7, 8,
-              9, 10, 12 (train, infer and svd apart), 16, 17 and 18 (the
+              19 (rehearsal, heavy_k and depth_dim apart), 9, 10, 12
+              (train, infer and svd apart), 16, 17 and 18 (the
               triangle's runs and train_full_r5b apart; each counted
               from 0 just before the path and read just after), K1's with
               its accumulate launches (also counted apart); K1's rows
@@ -373,6 +390,9 @@ from gnn_ecommerce_tpu_torch.runs import (
     serve_register_r5,
     serve_sustained_r3,
     bars,
+    depth_dim_sweep_r3,
+    heavy_k_sweep_r3,
+    real_data_rehearsal,
     skyline_full_r3,
     svd_full_r5,
     train_full_r5b,
@@ -521,6 +541,18 @@ QUALITY_EPOCHS = {"svd": 2, "bprmf": 2, "config3": 1, "train_full_r5b": 1}
 QUALITY_SEED = 1
 SKYLINE_USERS = 512
 QUALITY_CUT_BARS = {"bprmf": 0.1, "config3": 3.0, "train_full_r5b": 0.6}
+# Phase 19 (rehearsal_sweeps): the Day-0 rehearsal at the script's CI size
+# (REHEARSAL_ROWS, --quick), the heavy-head sweep on phase 2's split at
+# SWEEP_KS (phase 5 built 16,384) and the depth/dim sweep's fast corners on
+# phase 5's operator with the layered forward at SWEEP_LAYERED only, both
+# at SWEEP_REPS timed calls (the scripts': 10, and 2 for the layered one).
+REHEARSAL_ROWS = 60_000
+# real_data_rehearsal.rows_digest of those rows: JAX's fabricate at seed 42
+# (numpy 2.0.2) writes the same, so the card's numpy must draw them too.
+REHEARSAL_DIGEST = "564889efa0db7ed2151d18253fee4d089d859b7511af9fb17945324a26a2e068"
+SWEEP_KS = (0, 8192, 32768)
+SWEEP_LAYERED = (4,)
+SWEEP_REPS = 2
 # Phase 16 (bench): the benchmark's process must end within BENCH_TIMEOUT_S;
 # its line carries root bench.py's keys under "detail".
 BENCH_TIMEOUT_S = 600
@@ -2983,6 +3015,121 @@ def quality_path(prepared: PreparedData, work: str, dev: torch.device) -> tuple[
     return detail, triangle, r5b_launches
 
 
+@contextlib.contextmanager
+def uncounted():
+    """The kernels' launches in the block (a kernel held against its plain
+    version inside a path) are taken back out of the path's counts."""
+    saved = {kernel: dict(kernel.launches) for kernel in ALL_KERNELS}
+    try:
+        yield
+    finally:
+        for kernel in ALL_KERNELS:
+            kernel.launches = saved[kernel]
+
+
+def k1_launched(counts: dict, modes=("bfloat16", "cast_bf16")) -> bool:
+    """Whether a run's ``launch_counts`` differences hold each K1 mode."""
+    return all(counts.get(f"{SEGREDUCE.STEM}.{m}", 0) >= 1 for m in modes)
+
+
+def rehearsal_sweeps_path(prepared: PreparedData, split, fb16, work: str,
+                          dev: torch.device) -> tuple[str, dict]:
+    """Phase 19: the last three JAX scripts' ports, cut. The rehearsal at
+    REHEARSAL_ROWS rows (--quick) in ``work``, then K1 f32 held on its
+    service's plan; the heavy-head sweep on phase 2's split at SWEEP_KS, K1
+    bf16 and its cast held on each K's plans before they go; the depth/dim
+    sweep on phase 5's operator (``fb16``) and phase 2's graph, then K1
+    bf16 held on each dim's table. Each path is counted from 0. Raises on a
+    failed check; returns (detail line, launches by path)."""
+    launches, times = {}, {}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    line = real_data_rehearsal.run(work, REHEARSAL_ROWS, quick=True, device=dev)
+    launches["rehearsal"] = read_launches()
+    times["rehearsal"] = time.perf_counter() - t0
+    print(f"  rehearsal: {json.dumps(line)}", flush=True)
+    finite_numbers(line, "rehearsal")
+    assert line["concat"]["rows"] == REHEARSAL_ROWS and line["serve"]["n_items"] == 20, line
+    digest = real_data_rehearsal.rows_digest(os.path.join(work, "raw"))
+    assert digest == REHEARSAL_DIGEST, f"the fabricated rows differ from JAX's: {digest}"
+    assert k1_launched(line["launches"]["serve"], ("float32",)), line["launches"]
+    assert launches["rehearsal"]["segreduce_f32"] >= 1
+    data_dir = os.path.join(work, "data", "prepared")
+    small = load_prepared(data_dir)
+    graph = build_graph(small.edge_user, small.edge_item_node, small.edge_weight, small.n_users,
+                        small.n_items, items_offset=True, device="cpu")
+    s = split_graph(graph)
+    plan = build_segreduce_plan(s.ui_src_user, s.ui_dst_item, s.ui_w, s.n_items, device=dev)
+    leaves, _ = load_checkpoint(os.path.join(work, "model-checkpoints"), BEST_NAME)
+    E_u = torch.from_numpy(np.asarray(leaves[0])[: small.n_users]).to(dev)
+    hold_k1(E_u, plan, segreduce_plain(E_u, plan), "rehearsal K1 f32")
+    del small, graph, s, plan, leaves, E_u
+
+    reset_launches()
+    t0 = time.perf_counter()
+    held = []
+
+    def hold(k, fops, x_u):
+        with uncounted():
+            table = bf16_rows(x_u)
+            assert torch.equal(table, bf16_rows_plain(x_u)), f"heavy K {k}: the cast differs"
+            plan = fops.items_plan
+            hold_k1(table, plan, segreduce_plain(table, plan), f"heavy K {k} K1 bf16")
+            held.append(k)
+
+    records = heavy_k_sweep_r3.run(split, ks=SWEEP_KS, reps=SWEEP_REPS, device=dev, hold=hold)
+    launches["heavy_k"] = read_launches()
+    times["heavy_k"] = time.perf_counter() - t0
+    assert held == list(SWEEP_KS), held
+    for rec in records:
+        print(f"  heavy_k: {json.dumps(rec)}", flush=True)
+        assert all(c["held"] for c in rec["check"].values()), rec
+        assert k1_launched(rec["launches"]), rec
+    bars.hold({"results": records}, bars.heavy_k_sweep_r3({"results": records}))
+    torch.cuda.empty_cache()
+
+    graph_dev = build_graph(
+        prepared.edge_user, prepared.edge_item_node, prepared.edge_weight,
+        prepared.n_users, prepared.n_items, items_offset=True, device=dev,
+    )
+    reset_launches()
+    t0 = time.perf_counter()
+    sweep = depth_dim_sweep_r3.run(graph_dev, dev, fb=fb16, layered=SWEEP_LAYERED,
+                                   reps_layered=SWEEP_REPS, reps_fast=SWEEP_REPS)
+    launches["depth_dim"] = read_launches()
+    times["depth_dim"] = time.perf_counter() - t0
+    for rec in sweep["layered"] + sweep["fast"]:
+        print(f"  depth_dim: {json.dumps(rec)}", flush=True)
+    assert [r["layers"] for r in sweep["layered"]] == list(SWEEP_LAYERED), sweep["layered"]
+    assert len(sweep["fast"]) == len(depth_dim_sweep_r3.DIMS) * len(depth_dim_sweep_r3.LAYERS)
+    for rec in sweep["fast"]:
+        assert rec["check"]["forward"]["held"] and k1_launched(rec["launches"]), rec
+    bars.hold(sweep, bars.depth_dim_sweep_r3(sweep))
+    with torch.no_grad():
+        for dim in depth_dim_sweep_r3.DIMS:
+            table = bf16_rows(depth_dim_sweep_r3.params_for(graph_dev, dim, dev)["embedding"][: prepared.n_users])
+            plan = fb16.fops.items_plan
+            hold_k1(table, plan, segreduce_plain(table, plan), f"depth_dim dim {dim} K1 bf16")
+    del graph_dev, table
+    torch.cuda.empty_cache()
+
+    st = {k: round(v["s"], 2) for k, v in line.items() if isinstance(v, dict) and "s" in v}
+    detail = (
+        f"rehearsal {REHEARSAL_ROWS} rows: {line['eda']['n_users']} users x {line['eda']['n_items']} "
+        f"items, {line['preprocess']['unique_edges']} edges, val R@20 {line['train']['val_recall']:.5f}, "
+        f"stage s {st}; heavy K (ms to_items / to_users / head GB): "
+        + "; ".join(f"{r['K']} {r['to_items_ms']:.3f} / {r['to_users_ms']:.3f} / {r['head_gb_bf16']:.2f}"
+                    for r in records)
+        + "; depth/dim fast ms: "
+        + "; ".join(f"L{r['layers']} d{r['dim']} {r['ms']:.3f} (rel {r['check']['forward']['rel_frobenius']:.2e})"
+                    for r in sweep["fast"])
+        + f"; layered L4 d80 {sweep['layered'][0]['ms']:.3f}; K1 held on every new plan; seconds "
+        + " ".join(f"{k} {v:.1f}" for k, v in times.items())
+    )
+    return detail, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the corpus and weights")
@@ -3284,8 +3431,18 @@ def main(argv=None) -> int:
         f"val R@20 untrained {untrained_r:.6f} popularity {pop_r:.6f} "
         f"(P@20 {untrained_p:.6f} / {pop_p:.6f})",
     )
-    del fb16, step_params, step_state, sdata, train_step, x_items, E_u
+    del step_params, step_state, sdata, train_step, x_items, E_u
     torch.cuda.empty_cache()
+
+    # The last three JAX scripts' ports, cut (phase 5's operator reused):
+    # counts from 0 for each path.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rehearsal_") as work:
+        detail, sweeps = rehearsal_sweeps_path(prepared, split, fb16, work, dev)
+    path_launches.update(sweeps)
+    del fb16
+    torch.cuda.empty_cache()
+    phase(19, "rehearsal_sweeps", t0, detail)
 
     # Training path: train() and a resume, as a user runs them.
     t0 = time.perf_counter()

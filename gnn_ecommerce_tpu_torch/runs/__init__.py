@@ -50,6 +50,17 @@ and those that write checkpoints or files ``--work`` too (everything but
 
     python -m gnn_ecommerce_tpu_torch.runs.train_full_r5b -d DATA_DIR --seed 1 [--out x.json]
 
+The last three scripts' runs, with the same command line:
+
+- ``real_data_rehearsal``: ``scripts/real_data_rehearsal.json``, raw
+  Kaggle-schema monthly CSVs (fabricated, or the real dump's with
+  ``--raw-dir``) through ``cli.eda``, ``cli.preprocess``, ``cli.train``,
+  ``cli.infer`` and one REST predict (``--rows``, ``--quick``, ``--work``);
+- ``heavy_k_sweep_r3``: ``scripts/heavy_k_sweep_r3.json``, both sparse
+  directions at root ``bench.py``'s shape by heavy-head size;
+- ``depth_dim_sweep_r3``: ``scripts/depth_dim_sweep_r3.json``, the fast
+  forward at layers {4, 5} x dim {80, 90} beside the layered one.
+
 ``bars`` holds each quality run's line to the TPU's numbers: a missed bar
 raises (non-zero exit, no JSON).
 """

@@ -12,6 +12,8 @@ corpora (each built bit for bit as the JAX package builds it):
 | ``skyline_full_r3`` | within 1e-3 of 0.17829 |
 | ``train_full_r5b`` (any seed) | best val / test R@20 within 0.01 of 0.324422 / 0.318471 |
 | mesh, world of 1 | best val R@20 within 0.01 of each one-device run beside it |
+| ``real_data_rehearsal`` | 20 items in the REST answer; on the TPU's run (1,000,000 fabricated rows, dim 32, 3 layers, 5 epochs) the file's counts exactly (1,000,000 rows in 5 files, 43,921 users x 2,500 items, 238,048 unique edges) and best val R@20 within 0.02 of 0.43598 |
+| ``heavy_k_sweep_r3``, ``depth_dim_sweep_r3`` | every output held to its reference (each record's ``check``) and every time finite; no time bar (the TPU's times are not the card's) |
 
 Each run's ``main`` holds its line with :func:`hold` before it prints it:
 a missed bar raises :class:`BarMissed` (the line goes to stderr, no JSON
@@ -42,7 +44,17 @@ TPU = {
     "skyline": 0.17829,
     "train_full_best_val": 0.32442182846871753,
     "train_full_test": 0.3184713523890762,
+    # scripts/real_data_rehearsal.json
+    "rehearsal_rows": 1_000_000,
+    "rehearsal_files": 5,
+    "rehearsal_users": 43_921,
+    "rehearsal_items": 2_500,
+    "rehearsal_edges": 238_048,
+    "rehearsal_best_val": 0.43597867774466675,
 }
+# The TPU's rehearsal: fabricated rows and cli.train's (dim, layers, epochs).
+REHEARSAL_RUN = {"rows": 1_000_000, "train": (32, 3, 5)}
+REHEARSAL_ITEMS = 20
 
 
 class BarMissed(AssertionError):
@@ -69,6 +81,15 @@ class Bar:
         end = lambda x: x if math.isfinite(x) else None
         return {"what": self.what, "value": self.value, "lo": end(self.lo), "hi": end(self.hi),
                 "ref": self.ref, "held": self.held}
+
+
+def exactly(what: str, value: float, ref: float) -> Bar:
+    return Bar(what, value, ref, ref, ref)
+
+
+def finite(what: str, value: float) -> Bar:
+    """1 where ``value`` is finite, else 0: held at 1."""
+    return Bar(f"{what} finite", float(math.isfinite(value)), lo=1.0)
 
 
 def near(what: str, value: float, ref: float, tol: float) -> Bar:
@@ -134,6 +155,47 @@ def mesh_world_one(log_path: str, one_device: list[dict]) -> list[Bar]:
                  d["quality"]["best_val_recall"], 0.01) for d in one_device]
 
 
+def real_data_rehearsal(line: dict) -> list[Bar]:
+    t = line["train"]
+    out = [exactly("items in the REST answer", line["serve"]["n_items"], REHEARSAL_ITEMS)]
+    tpu_run = ("fabricate" in line and line["rows_requested"] == REHEARSAL_RUN["rows"]
+               and (t["dim"], t["layers"], t["epochs"]) == REHEARSAL_RUN["train"])
+    if tpu_run:
+        out += [
+            exactly("rows", line["concat"]["rows"], TPU["rehearsal_rows"]),
+            exactly("monthly files", line["concat"]["files"], TPU["rehearsal_files"]),
+            exactly("users", line["eda"]["n_users"], TPU["rehearsal_users"]),
+            exactly("items", line["eda"]["n_items"], TPU["rehearsal_items"]),
+            exactly("unique edges", line["preprocess"]["unique_edges"], TPU["rehearsal_edges"]),
+            near("best val R@20", t["val_recall"], TPU["rehearsal_best_val"], 0.02),
+        ]
+    return out
+
+
+# The numbers of a sweep's record that must be finite.
+SWEEP_NUMBERS = ("ms", "to_items_ms", "to_users_ms", "pair_ms", "plan_build_s", "head_gb_bf16")
+
+
+def sweep_records(line: dict, groups: tuple) -> list[Bar]:
+    """Each output of each record held (its ``check``) and its numbers finite."""
+    out = []
+    for group in groups:
+        for rec in line[group]:
+            name = f"{group} " + " ".join(f"{k} {rec[k]}" for k in ("K", "layers", "dim") if k in rec)
+            out += [Bar(f"{name}: {what} held", float(c["held"]), lo=1.0)
+                    for what, c in rec.get("check", {}).items()]
+            out += [finite(f"{name}: {k}", rec[k]) for k in SWEEP_NUMBERS if k in rec]
+    return out
+
+
+def heavy_k_sweep_r3(line: dict) -> list[Bar]:
+    return sweep_records(line, ("results",))
+
+
+def depth_dim_sweep_r3(line: dict) -> list[Bar]:
+    return sweep_records(line, ("layered", "fast"))
+
+
 BARS = {
     "movielens_bench": movielens_bench,
     "config3_subsample_r3": config3_subsample_r3,
@@ -141,6 +203,9 @@ BARS = {
     "bprmf_full_r5": bprmf_full_r5,
     "skyline_full_r3": skyline_full_r3,
     "train_full_r5b": train_full_r5b,
+    "real_data_rehearsal": real_data_rehearsal,
+    "heavy_k_sweep_r3": heavy_k_sweep_r3,
+    "depth_dim_sweep_r3": depth_dim_sweep_r3,
 }
 
 

@@ -110,4 +110,9 @@ def sample_batch(
     u01 = torch.rand(batch_size, generator=generator, device=dev)
     rank = torch.minimum((u01 * n_allowed).long(), n_allowed - 1)
     neg = _rank_to_allowed_item(data.ign_flat, ilo, ihi, rank, data.n_users)
+    # A user who ignores every item has no allowed negative, and the map
+    # gives n_users + n_items, one past the last item. JAX's gathers clamp
+    # that index to the last item; so does this (on the card an index out
+    # of range would abort the kernel).
+    neg = neg.clamp(max=data.n_users + data.n_items - 1)
     return users, pos, neg

@@ -15,6 +15,8 @@
 #   bash quality_run.sh --hash DIR     # hash a prepared-artifact directory
 #   bash quality_run.sh --triangle OUT_DIR
 #   bash quality_run.sh --spread OUT_DIR
+#   bash quality_run.sh --rehearsal OUT_DIR
+#   bash quality_run.sh --sweeps OUT_DIR
 #
 # --triangle runs the quality runs of gnn_ecommerce_tpu_torch/runs/ at the
 # JAX scripts' settings, each in its own process, each JSON line to
@@ -31,6 +33,13 @@
 # holds its line to its quality bars (gnn_ecommerce_tpu_torch/runs/bars.py)
 # and fails, printing no line, where one is missed: a mode exits non-zero
 # if any run failed.
+#
+# --rehearsal runs real_data_rehearsal at the script's size (1,000,000
+# fabricated rows in five Kaggle-schema monthly CSVs, cli.train at dim 32,
+# 3 layers, 5 epochs) in a temporary directory, held to the TPU file's
+# counts exactly and its best val R@20 within 0.02; --sweeps runs
+# heavy_k_sweep_r3 and depth_dim_sweep_r3 at root bench.py's shape, every
+# output held to its reference. Each run in its own process, as above.
 #
 # The hash is a sha256 over each array of DIR/prepared.npz (in the order of
 # DIR/manifest.json) and one over those digests, so that the port's
@@ -87,6 +96,21 @@ card_and_versions() {
 if [ "${1:-}" = "--hash" ]; then
   hash_artifact "$2"
   exit 0
+fi
+if [ "${1:-}" = "--rehearsal" ] || [ "${1:-}" = "--sweeps" ]; then
+  OUT=$(mkdir -p "$2" && cd "$2" && pwd)
+  WORK=$(mktemp -d)
+  trap 'rm -rf "$WORK"' EXIT
+  cd "$WORK"
+  card_and_versions
+  if [ "$1" = "--rehearsal" ]; then
+    quality real_data_rehearsal real_data_rehearsal --rows 1000000 --work "$WORK/rehearsal"
+    exit 0
+  fi
+  status=0
+  quality heavy_k_sweep_r3 heavy_k_sweep_r3 || status=1
+  quality depth_dim_sweep_r3 depth_dim_sweep_r3 || status=1
+  exit $status
 fi
 if [ "${1:-}" = "--triangle" ] || [ "${1:-}" = "--spread" ]; then
   OUT=$(mkdir -p "$2" && cd "$2" && pwd)

@@ -39,6 +39,7 @@ def test_every_module_imports_without_jax():
         "ops.spmm_sharded", "data.eda", "data.profile", "cli.eda", "bench",
         "runs.full_corpus_r3", "runs.svd_full_r5", "runs.bprmf_full_r5", "runs.skyline_full_r3",
         "runs.movielens_bench", "runs.config3_subsample_r3", "runs.train_full_r5b", "runs.bars",
+        "runs.real_data_rehearsal", "runs.heavy_k_sweep_r3", "runs.depth_dim_sweep_r3",
     ):
         assert f"gnn_ecommerce_tpu_torch.{name}" in modules
     code = (

@@ -339,10 +339,12 @@ def test_config3_popularity_and_line(no_bars, tmp_path, monkeypatch, capsys):
 
 
 # The H100's full-scale lines (NVIDIA H100 80GB HBM3, 700 W; quality_run.sh
-# --triangle and --spread), cut to the numbers the bars read, the path of
-# each run's main number and a value of it that misses a bar: half the
-# card's, but for BPR-MF, whose bar (0.00908 +- 0.01) holds anything below
-# 0.01908.
+# --triangle, --spread, --rehearsal and --sweeps), cut to the numbers the
+# bars read, the path of each run's main number and a value of it that
+# misses a bar: half the card's, but for BPR-MF, whose bar (0.00908 +- 0.01)
+# holds anything below 0.01908, and for the sweeps, whose bars hold each
+# output's check.
+_HELD = {"held": True}
 CARD_LINES = {
     "movielens_bench": ({
         "svd_cv_reference_protocol": {"precision_mean": 0.6518999592911623,
@@ -366,6 +368,27 @@ CARD_LINES = {
     "train_full_r5b": ({"quality": {"best_val_recall": 0.3242154756286389,
                                     "test_recall": 0.31561182554830425}}, ("quality", "best_val_recall"),
                        0.16210773781431945),
+    "real_data_rehearsal": ({
+        "rows_requested": 1000000, "fabricate": {}, "concat": {"rows": 1000000, "files": 5},
+        "eda": {"n_users": 43921, "n_items": 2500}, "preprocess": {"unique_edges": 238048},
+        "train": {"val_recall": 0.42770789248438984, "dim": 32, "layers": 3, "epochs": 5},
+        "serve": {"n_items": 20},
+    }, ("train", "val_recall"), 0.21385394624219492),
+    "heavy_k_sweep_r3": ({"results": [
+        {"K": k, "head_gb_bf16": gb, "to_items_ms": ti, "to_users_ms": tu, "pair_ms": ti + tu,
+         "plan_build_s": s, "check": {"to_items": _HELD, "to_users": _HELD}}
+        for k, gb, ti, tu, s in ((0, 0.0, 0.8149920105934143, 16.686800003051758, 0.22744939600002567),
+                                 (8192, 0.894091264, 1.1903520226478577, 14.038335800170898, 0.9292230700000061),
+                                 (16384, 1.788182528, 1.465279996395111, 13.623568058013916, 1.0346692660000087),
+                                 (32768, 3.576365056, 2.0245440006256104, 13.116719722747803, 1.1515610049999907))
+    ]}, ("results", 2, "check", "to_users", "held"), False),
+    "depth_dim_sweep_r3": ({
+        "layered": [{"layers": 4, "dim": 80, "ms": 139.76599884033203},
+                    {"layers": 5, "dim": 80, "ms": 174.54705810546875}],
+        "fast": [{"layers": l, "dim": d, "ms": ms, "check": {"forward": _HELD}}
+                 for l, d, ms in ((4, 80, 31.93604850769043), (5, 80, 36.64012908935547),
+                                  (4, 90, 29.450703620910645), (5, 90, 34.70024108886719))],
+    }, ("fast", 3, "check", "forward", "held"), False),
 }
 
 
