@@ -26,6 +26,11 @@ only at its batch: :func:`fast_batch_embeddings` replaces the full
 The graph arrays stay on the host (numpy) in :class:`BipartiteSplit`; the
 plans, the per-direction arc CSRs (:class:`ArcCsr`) and the operators built
 from them live on the device.
+
+Spans (``tracing.py``): ``ops.item_chain``, ``ops.to_items`` and
+``ops.to_users`` (in either direction of the autograd pairs),
+``ops.batch_users``; in set-up ``setup.split``, ``setup.plans`` and
+``setup.item_op`` with a child for each phase of :func:`build_item_operator`.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from .. import native
 from ..device import mm_f32, resolve_device
 from ..graph.build import BipartiteGraph
 from ..models.lightgcn import uniform_alphas
+from ..tracing import span
 from .spmm_fast import (
     BucketedSegReducePlan,
     EllPlan,
@@ -282,27 +288,29 @@ def build_fast_ops(
 
 
 def _to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
-    reduce = (
-        gather_segreduce_bucketed if isinstance(fops.items_plan, BucketedSegReducePlan)
-        else gather_segreduce
-    )
-    out = reduce(x_users, fops.items_plan, _DTYPES[fops.msgs_dtype])
-    if fops.w_hi is not None:
-        xh = x_users.index_select(0, fops.hi_ids).to(fops.w_hi.dtype)
-        out = out + mm_f32(fops.w_hi, xh)
-    return out
+    with span("ops.to_items"):
+        reduce = (
+            gather_segreduce_bucketed if isinstance(fops.items_plan, BucketedSegReducePlan)
+            else gather_segreduce
+        )
+        out = reduce(x_users, fops.items_plan, _DTYPES[fops.msgs_dtype])
+        if fops.w_hi is not None:
+            xh = x_users.index_select(0, fops.hi_ids).to(fops.w_hi.dtype)
+            out = out + mm_f32(fops.w_hi, xh)
+        return out
 
 
 def _to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
-    out = ell_apply(
-        x_items,
-        fops.users_ell,
-        gather_dtype=torch.bfloat16 if fops.msgs_dtype == "bfloat16" else None,
-    )
-    if fops.w_hi is not None:
-        heavy = mm_f32(fops.w_hi.T, x_items.to(fops.w_hi.dtype))
-        out.index_add_(0, fops.hi_ids, heavy)
-    return out
+    with span("ops.to_users"):
+        out = ell_apply(
+            x_items,
+            fops.users_ell,
+            gather_dtype=torch.bfloat16 if fops.msgs_dtype == "bfloat16" else None,
+        )
+        if fops.w_hi is not None:
+            heavy = mm_f32(fops.w_hi.T, x_items.to(fops.w_hi.dtype))
+            out.index_add_(0, fops.hi_ids, heavy)
+        return out
 
 
 class _FastToItems(torch.autograd.Function):
@@ -369,10 +377,11 @@ def build_item_operator(
     leaves the bytes alone); heavier users are densified ``heavy_chunk`` at a
     time into M [I, C] and add ``M @ Mᵀ`` band by band, each band's f32
     product at most ``band_bytes``. Accumulation is f32 throughout, with one
-    cast to ``dtype`` at the end. ``verbose`` prints each phase's seconds to
-    stderr. The JAX build's int32 band split and tile padding are TPU
-    constraints and are dropped: the f32 accumulator here is the whole
-    [I, I], and ``band_bytes`` bounds the matmul temporaries.
+    cast to ``dtype`` at the end. Each phase is a span
+    ``setup.item_op.<phase>`` (``tracing.py``); ``verbose`` also prints each
+    phase's seconds to stderr. The JAX build's int32 band split and tile
+    padding are TPU constraints and are dropped: the f32 accumulator here is
+    the whole [I, I], and ``band_bytes`` bounds the matmul temporaries.
     """
     dev = resolve_device(device)
     n_items = split.n_items
@@ -389,50 +398,54 @@ def build_item_operator(
                   file=sys.stderr, flush=True)
             last = now
 
-    order = np.argsort(split.ui_src_user, kind="stable")
-    ui_user = split.ui_src_user[order]
-    ui_item = split.ui_dst_item[order]
-    ui_w = split.ui_w[order].astype(np.float32)
-    _, first = np.unique(ui_user, return_index=True)
-    counts = np.diff(np.append(first, len(ui_user)))
-    user_indptr = np.append(first, len(ui_user))
-
+    with span("setup.item_op.host_csr"):
+        order = np.argsort(split.ui_src_user, kind="stable")
+        ui_user = split.ui_src_user[order]
+        ui_item = split.ui_dst_item[order]
+        ui_w = split.ui_w[order].astype(np.float32)
+        _, first = np.unique(ui_user, return_index=True)
+        counts = np.diff(np.append(first, len(ui_user)))
+        user_indptr = np.append(first, len(ui_user))
     phase("host csr")
-    B = torch.zeros(n_items, n_items, dtype=torch.float32, device=dev)
-    coo_a, coo_b, coo_v = native.pair_aggregate(
-        user_indptr, ui_item, ui_w, n_items, ell_width
-    )
+
+    with span("setup.item_op.pair_aggregate"):
+        B = torch.zeros(n_items, n_items, dtype=torch.float32, device=dev)
+        coo_a, coo_b, coo_v = native.pair_aggregate(
+            user_indptr, ui_item, ui_w, n_items, ell_width
+        )
     phase(f"pair_aggregate ({len(coo_a)} pairs)")
-    for s in range(0, len(coo_a), max(1, int(scatter_chunk))):
-        sl = slice(s, s + int(scatter_chunk))
-        flat = torch.from_numpy(coo_a[sl] * n_items + coo_b[sl]).to(dev)
-        B.view(-1).index_add_(0, flat, torch.from_numpy(coo_v[sl].astype(np.float32)).to(dev))
-    del coo_a, coo_b, coo_v
+    with span("setup.item_op.scatter"):
+        for s in range(0, len(coo_a), max(1, int(scatter_chunk))):
+            sl = slice(s, s + int(scatter_chunk))
+            flat = torch.from_numpy(coo_a[sl] * n_items + coo_b[sl]).to(dev)
+            B.view(-1).index_add_(0, flat, torch.from_numpy(coo_v[sl].astype(np.float32)).to(dev))
+        del coo_a, coo_b, coo_v
     phase("scatter")
 
     heavy = counts > ell_width
     h_first, h_counts = first[heavy], counts[heavy]
     if len(h_first):
-        # Heavy users' arcs, uploaded once: column (user within its chunk),
-        # item and weight per arc, in user order.
-        take = np.repeat(h_first, h_counts) + (
-            np.arange(int(h_counts.sum()))
-            - np.repeat(np.cumsum(np.append(0, h_counts[:-1])), h_counts)
-        )
-        cols = np.repeat(np.arange(len(h_first)) % heavy_chunk, h_counts)
-        h_flat = torch.from_numpy(ui_item[take].astype(np.int64) * heavy_chunk + cols).to(dev)
-        h_vals = torch.from_numpy(ui_w[take]).to(dev)
-        arc_ptr = np.append(0, np.cumsum(h_counts))
-        mm_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
-        for s in range(0, len(h_first), heavy_chunk):
-            lo, hi = int(arc_ptr[s]), int(arc_ptr[min(s + heavy_chunk, len(h_first))])
-            M = torch.zeros(n_items * heavy_chunk, dtype=torch.float32, device=dev)
-            M.index_add_(0, h_flat[lo:hi], h_vals[lo:hi])
-            M = M.view(n_items, heavy_chunk).to(mm_dtype)
-            Mt = M.T
-            for a0 in range(0, n_items, band_rows):
-                B[a0 : a0 + band_rows] += mm_f32(M[a0 : a0 + band_rows], Mt)
-            del M, Mt
+        with span("setup.item_op.heavy_matmuls"):
+            # Heavy users' arcs, uploaded once: column (user within its chunk),
+            # item and weight per arc, in user order.
+            take = np.repeat(h_first, h_counts) + (
+                np.arange(int(h_counts.sum()))
+                - np.repeat(np.cumsum(np.append(0, h_counts[:-1])), h_counts)
+            )
+            cols = np.repeat(np.arange(len(h_first)) % heavy_chunk, h_counts)
+            h_flat = torch.from_numpy(ui_item[take].astype(np.int64) * heavy_chunk + cols).to(dev)
+            h_vals = torch.from_numpy(ui_w[take]).to(dev)
+            arc_ptr = np.append(0, np.cumsum(h_counts))
+            mm_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+            for s in range(0, len(h_first), heavy_chunk):
+                lo, hi = int(arc_ptr[s]), int(arc_ptr[min(s + heavy_chunk, len(h_first))])
+                M = torch.zeros(n_items * heavy_chunk, dtype=torch.float32, device=dev)
+                M.index_add_(0, h_flat[lo:hi], h_vals[lo:hi])
+                M = M.view(n_items, heavy_chunk).to(mm_dtype)
+                Mt = M.T
+                for a0 in range(0, n_items, band_rows):
+                    B[a0 : a0 + band_rows] += mm_f32(M[a0 : a0 + band_rows], Mt)
+                del M, Mt
         phase(f"heavy matmuls ({len(h_first)} users)")
     return B if dtype == torch.float32 else B.to(dtype)
 
@@ -502,18 +515,21 @@ def build_fast_bipartite(
     dev = resolve_device(device)
     if band_bytes is None:
         band_bytes = 1.5e9 if (fast_ops and heavy_users > 0) else 2.5e9
-    split = split_graph(graph)
+    with span("setup.split"):
+        split = split_graph(graph)
     t0 = time.perf_counter()
-    fops = (
-        build_fast_ops(split, msgs_dtype, heavy_users, heavy_dtype, src_buckets, device=dev)
-        if fast_ops else None
-    )
-    user_csr = arc_csr(split, "users", dev)
-    item_csr = None if fast_ops else arc_csr(split, "items", dev)
+    with span("setup.plans"):
+        fops = (
+            build_fast_ops(split, msgs_dtype, heavy_users, heavy_dtype, src_buckets, device=dev)
+            if fast_ops else None
+        )
+        user_csr = arc_csr(split, "users", dev)
+        item_csr = None if fast_ops else arc_csr(split, "items", dev)
     t1 = time.perf_counter()
-    item_op = build_item_operator(split, dtype=dtype, band_bytes=band_bytes, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with span("setup.item_op"):
+        item_op = build_item_operator(split, dtype=dtype, band_bytes=band_bytes, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
     return FastBipartite(
         split=split,
@@ -539,21 +555,22 @@ def item_chain_core(E_u, E_i, to_items_fn, B, num_layers: int, alpha):
     if B is None:
         raise ValueError("item_chain_core needs the item-item operator B_ii")
     product = B if callable(B) else functools.partial(mm_f32, B)
-    i_seq = [E_i.float(), to_items_fn(E_u)]
-    D = E_i.shape[1]
-    l = 2
-    while l <= num_layers:
-        if l + 1 <= num_layers:
-            both = torch.cat([i_seq[l - 2].to(B.dtype), i_seq[l - 1].to(B.dtype)], dim=1)
-            nxt = product(both)
-            i_seq.append(nxt[:, :D])
-            i_seq.append(nxt[:, D:])
-            l += 2
-        else:
-            i_seq.append(product(i_seq[l - 2].to(B.dtype)))
-            l += 1
-    out_i = sum(alpha[l] * i_seq[l] for l in range(num_layers + 1))
-    S_i = sum(alpha[l] * i_seq[l - 1] for l in range(1, num_layers + 1))
+    with span("ops.item_chain"):
+        i_seq = [E_i.float(), to_items_fn(E_u)]
+        D = E_i.shape[1]
+        l = 2
+        while l <= num_layers:
+            if l + 1 <= num_layers:
+                both = torch.cat([i_seq[l - 2].to(B.dtype), i_seq[l - 1].to(B.dtype)], dim=1)
+                nxt = product(both)
+                i_seq.append(nxt[:, :D])
+                i_seq.append(nxt[:, D:])
+                l += 2
+            else:
+                i_seq.append(product(i_seq[l - 2].to(B.dtype)))
+                l += 1
+        out_i = sum(alpha[l] * i_seq[l] for l in range(num_layers + 1))
+        S_i = sum(alpha[l] * i_seq[l - 1] for l in range(1, num_layers + 1))
     return out_i, S_i
 
 
@@ -606,10 +623,11 @@ def fast_batch_embeddings(
     for the device.
     """
     E_u, out_i, S_i, alpha = _item_chain(params, fb, num_layers, alpha)
-    csr = fb.user_csr
-    start = csr.indptr[users]
-    agg, dropped = batch_messages(start, csr.indptr[users + 1] - start, csr.src, csr.w, S_i, edge_cap)
-    u_out = alpha[0] * E_u[users].float() + agg
+    with span("ops.batch_users"):
+        csr = fb.user_csr
+        start = csr.indptr[users]
+        agg, dropped = batch_messages(start, csr.indptr[users + 1] - start, csr.src, csr.w, S_i, edge_cap)
+        u_out = alpha[0] * E_u[users].float() + agg
     n_users = fb.n_users
     return u_out, out_i[pos - n_users], out_i[neg - n_users], dropped
 

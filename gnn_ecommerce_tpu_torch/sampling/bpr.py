@@ -26,6 +26,7 @@ import torch
 
 from ..data.prepare import SamplerArrays
 from ..device import resolve_device
+from ..tracing import mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,18 +68,22 @@ def _rank_to_allowed_item(
     ``n_users + r + k`` with k the number of ignored ids below it; the
     predicate P(k) := ``flat[lo+k-1] < n_users + r + k`` (P(0) true) is
     monotone in k, so 32 halving steps find the largest k in [0, hi-lo]
-    with P(k)."""
+    with P(k). Each halving step is marked ``train.sample.bisect`` on a
+    profiler's timeline (``tracing.mark``, not recorded): its small launches
+    leave the device idle between them, and a trace names such a gap by the
+    innermost span among the last few hundred host events."""
     size = max(int(flat.shape[0]), 1)
     if flat.numel() == 0:
         flat = torch.zeros(1, dtype=torch.int64, device=rank.device)
     a = torch.zeros_like(rank)
     b = hi - lo  # invariant: P(a) true, P(b + 1) false (b may equal the row length)
     for _ in range(32):
-        mid = torch.div(a + b + 1, 2, rounding_mode="floor")
-        idx = (lo + mid - 1).clamp(0, size - 1)
-        ok = (mid == 0) | (flat[idx] < n_users + rank + mid)
-        a = torch.where(ok, mid, a)
-        b = torch.where(ok, b, mid - 1)
+        with mark("train.sample.bisect"):
+            mid = torch.div(a + b + 1, 2, rounding_mode="floor")
+            idx = (lo + mid - 1).clamp(0, size - 1)
+            ok = (mid == 0) | (flat[idx] < n_users + rank + mid)
+            a = torch.where(ok, mid, a)
+            b = torch.where(ok, b, mid - 1)
     return n_users + rank + a
 
 

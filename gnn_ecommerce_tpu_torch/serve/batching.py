@@ -56,6 +56,8 @@ class BatchingRecommender:
         self._batches = 0
         self._batched_users = 0
         self._batched_requests = 0
+        self._queue_wait_s = 0.0  # each batched request's enqueue → its batch's take
+        self._dispatch_s = 0.0  # each batch's dispatch: ids joined, service call, rows split
         # Worker pool: each worker loops take_batch -> dispatch, so up to
         # `parallelism` coalesced device calls are in flight (no per-batch
         # thread churn, no semaphore leak path). Resizable at runtime
@@ -156,6 +158,10 @@ class BatchingRecommender:
                     batch.append(p)
                     total += len(p.ids)
                 del self._pending[: len(batch)]
+                now = time.perf_counter()
+                wait = sum(now - p.t_enq for p in batch)
+                with self._stats_lock:
+                    self._queue_wait_s += wait
                 return batch
 
     def _loop(self):
@@ -167,6 +173,7 @@ class BatchingRecommender:
 
     def _dispatch(self, batch):
         n_users = 0
+        t0 = time.perf_counter()
         try:
             ids = np.concatenate([p.ids for p in batch])
             n_users = len(ids)
@@ -179,10 +186,12 @@ class BatchingRecommender:
             for p in batch:
                 p.error = e
         finally:
+            seconds = time.perf_counter() - t0
             with self._stats_lock:
                 self._batches += 1
                 self._batched_users += n_users
                 self._batched_requests += len(batch)
+                self._dispatch_s += seconds
             for p in batch:
                 p.event.set()
 
@@ -193,6 +202,7 @@ class BatchingRecommender:
             batches, reqs, users = (
                 self._batches, self._batched_requests, self._batched_users
             )
+            wait_s, dispatch_s = self._queue_wait_s, self._dispatch_s
         m.update(
             {
                 "batches_total": batches,
@@ -201,6 +211,8 @@ class BatchingRecommender:
                 "users_per_batch_avg": round(users / batches, 3)
                 if batches
                 else 0.0,
+                "queue_wait_seconds_total": round(wait_s, 6),
+                "dispatch_seconds_total": round(dispatch_s, 6),
             }
         )
         return m

@@ -38,6 +38,7 @@ from ..eval.evaluate import recommend_users
 from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig
 from ..ops.bipartite import build_fast_bipartite, fast_get_embedding
+from ..tracing import span
 from ..train.checkpoint import BEST_NAME, find_leaf, load_checkpoint
 from .quantized import QuantizedCache
 
@@ -206,14 +207,18 @@ class RecommenderService:
 
     def _build_cache(self, params: dict, cfg: LightGCNConfig):
         """The fast f32 forward over this graph's FastBipartite, and its
-        quantized view when the service is quantized: (emb, qcache)."""
+        quantized view when the service is quantized: (emb, qcache). The
+        two are the spans ``serve.refresh.propagate`` and
+        ``serve.refresh.cache``, in a registration too."""
         with torch.inference_mode():
-            emb = fast_get_embedding(
-                params, self.fast_bipartite, cfg.num_layers, alpha=cfg.alphas()
-            )
-            qcache = QuantizedCache(emb, self.prepared.n_users) if self.quantized else None
-        if emb.is_cuda:
-            torch.cuda.synchronize(emb.device)
+            with span("serve.refresh.propagate"):
+                emb = fast_get_embedding(
+                    params, self.fast_bipartite, cfg.num_layers, alpha=cfg.alphas()
+                )
+            with span("serve.refresh.cache"):
+                qcache = QuantizedCache(emb, self.prepared.n_users) if self.quantized else None
+                if emb.is_cuda:
+                    torch.cuda.synchronize(emb.device)
         return emb, qcache
 
     @property
@@ -229,30 +234,32 @@ class RecommenderService:
         lock before the (unlocked) propagation, and the result is written
         back to that same entry. If the entry was unregistered, or replaced
         by a new registration, while the propagation ran, the result is
-        dropped."""
-        t0 = time.perf_counter()
-        with self._lock:
-            target = version if version is not None else self._active
-            ver = self._versions.get(target)
-            cfg = ver["cfg"] if ver else self.cfg
-            meta = (ver["meta"] if ver else getattr(self, "checkpoint_meta", {})) or {}
-            source = ver["source"] if ver else getattr(self, "_checkpoint_source", None)
-        emb, qcache = self._build_cache(params, cfg)
-        with self._lock:
-            current = self._versions.get(target)
-            if ver is not None and (current is None or current["gen"] != ver["gen"]):
-                self.last_refresh_s = time.perf_counter() - t0
-                return self.last_refresh_s
-            self._versions[target] = {
-                "emb": emb,
-                "qcache": qcache,
-                "meta": meta,
-                "source": source,
-                "cfg": cfg,
-                "gen": next(self._gens),
-            }
-        self.last_refresh_s = time.perf_counter() - t0
-        return self.last_refresh_s
+        dropped. The call is the span ``serve.refresh``, parent of
+        ``serve.refresh.propagate``, ``.cache`` and ``.swap``."""
+        with span("serve.refresh"):
+            t0 = time.perf_counter()
+            with self._lock:
+                target = version if version is not None else self._active
+                ver = self._versions.get(target)
+                cfg = ver["cfg"] if ver else self.cfg
+                meta = (ver["meta"] if ver else getattr(self, "checkpoint_meta", {})) or {}
+                source = ver["source"] if ver else getattr(self, "_checkpoint_source", None)
+            emb, qcache = self._build_cache(params, cfg)
+            with span("serve.refresh.swap"), self._lock:
+                current = self._versions.get(target)
+                if ver is not None and (current is None or current["gen"] != ver["gen"]):
+                    self.last_refresh_s = time.perf_counter() - t0
+                    return self.last_refresh_s
+                self._versions[target] = {
+                    "emb": emb,
+                    "qcache": qcache,
+                    "meta": meta,
+                    "source": source,
+                    "cfg": cfg,
+                    "gen": next(self._gens),
+                }
+            self.last_refresh_s = time.perf_counter() - t0
+            return self.last_refresh_s
 
     def register_version(
         self,

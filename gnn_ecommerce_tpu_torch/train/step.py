@@ -12,6 +12,10 @@ Differences of form, not of math:
   donates its buffers to the same end);
 - Adam is a few lines of our own (:class:`Adam`) in optax's form, so its
   state is the optax state under torch names.
+
+Each ``train_step`` call is the span ``train.step`` (``tracing.py``), parent
+of ``train.sample``, ``train.forward``, ``train.loss``, ``train.backward``
+and ``train.adam``; ``run_steps``' one read of its metrics is ``train.sync``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from ..models.lightgcn import LightGCNConfig, get_embedding
 from ..models.losses import bpr_loss, reg_loss
 from ..ops.propagate import propagate_segment
 from ..sampling.bpr import BprSamplerData, sample_batch
+from ..tracing import span
 
 
 @dataclasses.dataclass
@@ -106,15 +111,18 @@ def make_loss_fn(
         embed_fn = lambda params, graph: get_embedding(params, graph, cfg, propagate_fn)
 
     def loss_fn(params, graph, users, pos, neg):
-        if batch_embed_fn is not None:
-            u, p, n, dropped = batch_embed_fn(params, graph, users, pos, neg)
-        else:
-            out = embed_fn(params, graph)
-            u, p, n = out[users], out[pos], out[neg]
-            dropped = torch.zeros((), dtype=torch.int64, device=users.device)
-        bpr = bpr_loss((u * p).sum(-1), (u * n).sum(-1))
-        reg = reg_loss(params["embedding"], users, pos, neg, decay)
-        return bpr + reg, (bpr, reg, dropped)
+        with span("train.forward"):
+            if batch_embed_fn is not None:
+                u, p, n, dropped = batch_embed_fn(params, graph, users, pos, neg)
+            else:
+                out = embed_fn(params, graph)
+                u, p, n = out[users], out[pos], out[neg]
+                dropped = torch.zeros((), dtype=torch.int64, device=users.device)
+        with span("train.loss"):
+            bpr = bpr_loss((u * p).sum(-1), (u * n).sum(-1))
+            reg = reg_loss(params["embedding"], users, pos, neg, decay)
+            loss = bpr + reg
+        return loss, (bpr, reg, dropped)
 
     return loss_fn
 
@@ -132,8 +140,10 @@ def make_batch_step(loss_fn: Callable, optimizer: Adam):
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         with torch.enable_grad():
             loss, (bpr, reg, dropped) = loss_fn(leaves, graph, users, pos, neg)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        optimizer.update(dict(zip(leaves, grads)), opt_state, params)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+        with span("train.adam"):
+            optimizer.update(dict(zip(leaves, grads)), opt_state, params)
         metrics = {
             "loss": loss.detach(),
             "bpr_loss": bpr.detach(),
@@ -157,7 +167,8 @@ def make_run_steps(train_step: Callable):
             total = m if total is None else {k: total[k] + m[k] for k in m}
         names = list(total)
         stacked = torch.stack([total[k] for k in names])
-        means = (stacked / divisor(num_steps, stacked.device)).tolist()
+        with span("train.sync"):
+            means = (stacked / divisor(num_steps, stacked.device)).tolist()
         return params, opt_state, dict(zip(names, means))
 
     return run_steps
@@ -191,8 +202,10 @@ def make_train_fns(
     on_batch = make_batch_step(loss_fn, optimizer)
 
     def train_step(params, opt_state, graph, sdata: BprSamplerData, generator):
-        users, pos, neg = sample_batch(generator, sdata, batch_size, replace=sample_replace)
-        return on_batch(params, opt_state, graph, users, pos, neg)
+        with span("train.step"):
+            with span("train.sample"):
+                users, pos, neg = sample_batch(generator, sdata, batch_size, replace=sample_replace)
+            return on_batch(params, opt_state, graph, users, pos, neg)
 
     train_step.on_batch, train_step.loss_fn = on_batch, loss_fn
     return train_step, make_run_steps(train_step)

@@ -1,0 +1,251 @@
+"""The port's span tracer (``gnn_ecommerce_tpu_torch/tracing.py``) on the CPU:
+off it hands out one shared no-op object and keeps nothing; recording keeps
+each span's parent on its own thread's stack, its self time and the
+counters; under a torch profiler each span (and each mark, which is never
+recorded) is a host ``cpu_op`` event, not a user annotation; and the spans of the training step, the service's refresh
+and the fast-bipartite build appear where those paths run. Also the
+batcher's queue-wait and dispatch counters."""
+import re
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from gnn_ecommerce_tpu_torch import tracing
+from gnn_ecommerce_tpu_torch.data.prepare import CsrList, EvalSplit, PreparedData, SamplerArrays
+from gnn_ecommerce_tpu_torch.graph.build import build_graph
+from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig
+from gnn_ecommerce_tpu_torch.ops import bipartite as bip
+from gnn_ecommerce_tpu_torch.sampling.bpr import make_sampler_data
+from gnn_ecommerce_tpu_torch.serve import BatchingRecommender, RecommenderService, make_server
+from gnn_ecommerce_tpu_torch.train.step import Adam, make_train_fns
+from torch_port_case import small_arcs
+
+torch.set_num_threads(1)
+
+DIM, LAYERS, BATCH, STEPS = 8, 3, 64, 3
+STEP_SPANS = ("train.step", "train.sample", "train.forward", "train.loss", "train.backward", "train.adam")
+
+
+def records(name):
+    return [r for r in tracing._spans if r.name == name]
+
+
+def parent_name(rec):
+    return None if rec.parent is None else rec.parent.name
+
+
+def test_off_is_one_shared_object_and_keeps_nothing():
+    with tracing.recording():
+        pass
+    assert not torch._C._autograd._profiler_enabled()
+    first, second = tracing.span("a"), tracing.span("b.c")
+    assert first is second is tracing._OFF
+    assert tracing.mark("d") is tracing._OFF
+    with first as entered:
+        assert entered is None
+        tracing.count("n", 3)
+    assert tracing.report() == {"spans": {}, "counters": {}}
+
+
+def test_recording_parents_self_time_threads_and_counters():
+    def worker():
+        with tracing.span("thread.outer"):
+            with tracing.span("thread.inner"):
+                tracing.count("n", 2)
+
+    with tracing.recording():
+        with tracing.span("outer"):
+            time.sleep(0.01)
+            with tracing.span("inner"):
+                time.sleep(0.02)
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive()
+            tracing.count("n")
+    rep = tracing.report()
+    assert set(rep["spans"]) == {"outer", "inner", "thread.outer", "thread.inner"}
+    assert rep["counters"] == {"n": 3}
+    assert all(s["calls"] == 1 and s["device_ms"] is None for s in rep["spans"].values())
+    outer, inner = rep["spans"]["outer"], rep["spans"]["inner"]
+    assert inner["host_ms"] >= 20 and outer["host_ms"] >= 30
+    assert outer["self_host_ms"] == pytest.approx(outer["host_ms"] - inner["host_ms"])
+    assert inner["self_host_ms"] == pytest.approx(inner["host_ms"])
+    # The worker's spans are on their own stack, not under the main thread's.
+    (t_outer,), (t_inner,), (m_inner,) = records("thread.outer"), records("thread.inner"), records("inner")
+    assert parent_name(t_outer) is None and parent_name(t_inner) == "thread.outer"
+    assert parent_name(m_inner) == "outer" and t_outer.thread != m_inner.thread
+    # A new block drops what the last one kept; spans after it are not kept.
+    with tracing.recording():
+        pass
+    with tracing.span("late"):
+        pass
+    assert tracing.report() == {"spans": {}, "counters": {}}
+
+
+def test_span_under_a_profiler_is_a_host_op_not_a_user_annotation():
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.span("ops.outer") as s:
+            assert s is not tracing._OFF
+            with tracing.span("ops.inner"):
+                torch.ones(8).add_(1)
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    for name in ("ops.outer", "ops.inner"):
+        assert name in events
+        assert not events[name].is_user_annotation()
+    assert events["ops.inner"].start_ns() >= events["ops.outer"].start_ns()
+
+
+def test_mark_is_on_the_profiler_timeline_alone():
+    from torch.profiler import ProfilerActivity, profile
+
+    with tracing.recording():
+        with tracing.span("outer"):
+            assert tracing.mark("inner.mark") is tracing._OFF
+    assert set(tracing.report()["spans"]) == {"outer"}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.recording():
+            with tracing.span("outer"), tracing.mark("inner.mark"):
+                torch.ones(8).add_(1)
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    assert "inner.mark" in events and not events["inner.mark"].is_user_annotation()
+    assert events["inner.mark"].start_ns() >= events["outer"].start_ns()
+    assert set(tracing.report()["spans"]) == {"outer"}
+
+
+def _tiny():
+    u, i, w, n_u, n_i = small_arcs()
+    order = np.lexsort((i, u))
+    uu, ii = u[order], i[order]
+    users = np.unique(uu)
+    indptr = np.searchsorted(uu, np.append(users, n_u)).astype(np.int64)
+    flat = (ii + n_u).astype(np.int64)
+    sampler = SamplerArrays(users=users, pos_indptr=indptr, pos_flat=flat, ign_indptr=indptr, ign_flat=flat)
+    return u, i, w, n_u, n_i, sampler
+
+
+def test_run_steps_spans_once_a_step():
+    u, i, w, n_u, n_i, sampler = _tiny()
+    graph = build_graph(u, i, w, n_u, n_i, device="cpu")
+    fb = bip.build_fast_bipartite(graph, fast_ops=True, heavy_users=50, device="cpu")
+    sdata = make_sampler_data(sampler, n_u, n_i, "cpu")
+    params = {"embedding": torch.randn(n_u + n_i, DIM, generator=torch.Generator().manual_seed(0)) * 0.1}
+    opt = Adam(0.005)
+    state = opt.init(params)
+    _, run_steps = make_train_fns(
+        LightGCNConfig(n_u + n_i, DIM, LAYERS), opt, BATCH, 1e-4,
+        batch_embed_fn=lambda p, f, us, po, ne: bip.fast_batch_embeddings(p, f, LAYERS, us, po, ne, edge_cap=4096),
+    )
+    gen = torch.Generator().manual_seed(1)
+    with tracing.recording():
+        params, state, _ = run_steps(params, state, fb, sdata, gen, STEPS)
+    spans = tracing.report()["spans"]
+    for name in STEP_SPANS + ("ops.item_chain", "ops.to_items", "ops.batch_users", "ops.to_users"):
+        assert spans[name]["calls"] == STEPS, name
+    assert spans["train.sync"]["calls"] == 1
+    assert "train.sample.bisect" not in spans  # a profiler's mark, not recorded
+    # The forward's products under the chain; to_items' backward (the ELL)
+    # under the backward; every child of a step inside it.
+    for child, parent in (("train.sample", "train.step"), ("train.forward", "train.step"),
+                          ("train.backward", "train.step"), ("train.adam", "train.step"),
+                          ("ops.item_chain", "train.forward"),
+                          ("ops.to_items", "ops.item_chain"), ("ops.batch_users", "train.forward"),
+                          ("ops.to_users", "train.backward")):
+        assert {parent_name(r) for r in records(child)} == {parent}, child
+    kids = sum(spans[k]["host_ms"] for k in STEP_SPANS[1:])
+    assert kids <= spans["train.step"]["host_ms"]
+    assert spans["train.step"]["self_host_ms"] == pytest.approx(spans["train.step"]["host_ms"] - kids)
+
+
+def test_fast_bipartite_build_spans_and_verbose_phases(capsys):
+    u, i, w, n_u, n_i, _ = _tiny()
+    graph = build_graph(u, i, w, n_u, n_i, device="cpu")
+    with tracing.recording():
+        fb = bip.build_fast_bipartite(graph, fast_ops=True, heavy_users=50, device="cpu")
+    rep = tracing.report()
+    phases = ("host_csr", "pair_aggregate", "scatter", "heavy_matmuls")
+    assert {"setup.split", "setup.plans", "setup.item_op"} <= set(rep["spans"])
+    for p in phases:
+        (rec,) = records(f"setup.item_op.{p}")
+        assert parent_name(rec) == "setup.item_op"
+    assert set(fb.build_seconds) == {"plans", "item_op"} and rep["counters"] == {}
+    # verbose prints a line after each phase's span, the counts in its label:
+    # the heavy users are those of more than ell_width (8) arcs.
+    split = bip.split_graph(graph)
+    bip.build_item_operator(split, heavy_chunk=4, verbose=True, device="cpu")
+    err = capsys.readouterr().err
+    assert "b_ii phase host csr" in err and "b_ii phase scatter" in err
+    pairs = int(re.search(r"b_ii phase pair_aggregate \((\d+) pairs\)", err).group(1))
+    heavy = int(re.search(r"b_ii phase heavy matmuls \((\d+) users\)", err).group(1))
+    assert pairs > 0 and heavy == int((np.bincount(split.ui_src_user) > 8).sum()) > 0
+
+
+def _service():
+    u, i, w, n_u, n_i, sampler = _tiny()
+    empty = EvalSplit(np.zeros(0, np.int64), CsrList(np.zeros(1, np.int64), np.zeros(0, np.int64)),
+                      CsrList(np.zeros(1, np.int64), np.zeros(0, np.int64)))
+    prepared = PreparedData(n_users=n_u, n_items=n_i, edge_user=u.astype(np.int64),
+                            edge_item_node=(i + n_u).astype(np.int64), edge_weight=w, sampler=sampler,
+                            val=empty, test=empty, user_classes=np.arange(n_u), item_classes=np.arange(n_i))
+    params = {"embedding": torch.randn(n_u + n_i, DIM, generator=torch.Generator().manual_seed(2)) * 0.1}
+    return RecommenderService(prepared, params, LightGCNConfig(n_u + n_i, DIM, LAYERS), k=5, device="cpu"), params
+
+
+def test_refresh_spans():
+    svc, params = _service()
+    with tracing.recording():
+        svc.refresh(params)
+        svc.refresh(params)
+    spans = tracing.report()["spans"]
+    for name in ("serve.refresh", "serve.refresh.propagate", "serve.refresh.cache", "serve.refresh.swap",
+                 "ops.item_chain", "ops.to_items", "ops.to_users"):
+        assert spans[name]["calls"] == 2, name
+    for child in ("serve.refresh.propagate", "serve.refresh.cache", "serve.refresh.swap"):
+        assert {parent_name(r) for r in records(child)} == {"serve.refresh"}
+    assert {parent_name(r) for r in records("ops.to_users")} == {"serve.refresh.propagate"}
+    assert svc.last_refresh_s * 1e3 <= spans["serve.refresh"]["host_ms"]
+
+
+def test_batcher_counts_queue_wait_and_dispatch():
+    svc, _ = _service()
+    linger = 0.05
+    batcher = BatchingRecommender(svc, max_wait_s=linger)
+    users = np.asarray(svc.prepared.sampler.users)
+    reqs = [users[k : k + 2] for k in range(0, 16, 2)]
+    out = [None] * len(reqs)
+
+    def call(k):
+        out[k] = batcher.recommend(reqs[k])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(k,)) for k in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    wall = time.perf_counter() - t0
+    assert all(o is not None for o in out)
+    m = batcher.metrics()
+    assert m["batched_requests_total"] == len(reqs)
+    # Each batch waits out its linger from its oldest request's arrival.
+    assert m["queue_wait_seconds_total"] >= 0.99 * linger * m["batches_total"]
+    assert m["queue_wait_seconds_total"] <= len(reqs) * wall
+    assert 0 < m["dispatch_seconds_total"] <= 2 * wall
+    server = make_server(batcher, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.server_address[1]}/metrics") as r:
+            text = r.read().decode()
+    finally:
+        server.shutdown()
+    counts = {line.split()[0]: float(line.split()[1]) for line in text.splitlines() if line and line[0] != "#"}
+    assert "# TYPE lightgcn_queue_wait_seconds_total counter" in text
+    assert counts["lightgcn_queue_wait_seconds_total"] == pytest.approx(m["queue_wait_seconds_total"])
+    assert counts["lightgcn_dispatch_seconds_total"] == pytest.approx(m["dispatch_seconds_total"])
