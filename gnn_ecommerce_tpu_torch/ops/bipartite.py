@@ -31,6 +31,8 @@ Spans (``tracing.py``): ``ops.item_chain``, ``ops.to_items`` and
 ``ops.to_users`` (in either direction of the autograd pairs),
 ``ops.batch_users``; in set-up ``setup.split``, ``setup.plans`` and
 ``setup.item_op`` with a child for each phase of :func:`build_item_operator`.
+Counter: ``ops.item_chain.unaligned``, each B_ii product whose bf16
+operands leave the layout of :func:`padded_cols`.
 """
 from __future__ import annotations
 
@@ -41,12 +43,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import native
 from ..device import mm_f32, resolve_device
 from ..graph.build import BipartiteGraph
 from ..models.lightgcn import uniform_alphas
-from ..tracing import span
+from ..tracing import count, span
 from .spmm_fast import (
     BucketedSegReducePlan,
     EllPlan,
@@ -382,6 +385,12 @@ def build_item_operator(
     phase's seconds to stderr. The JAX build's int32 band split and tile
     padding are TPU constraints and are dropped: the f32 accumulator here is
     the whole [I, I], and ``band_bytes`` bounds the matmul temporaries.
+
+    A bf16 B_ii is the ``[:, :I]`` view of zeroed [I, ``padded_cols(I)``]
+    storage: shape [I, I], strides (``padded_cols(I)``, 1), so that cuBLAS
+    reads it with a 16-byte row stride (:func:`item_op_mm`). ``.contiguous()``
+    and ``.clone()`` drop the padding; copy it into :func:`row_padded`
+    storage instead. An f32 B_ii is the accumulator itself.
     """
     dev = resolve_device(device)
     n_items = split.n_items
@@ -447,7 +456,60 @@ def build_item_operator(
                     B[a0 : a0 + band_rows] += mm_f32(M[a0 : a0 + band_rows], Mt)
                 del M, Mt
         phase(f"heavy matmuls ({len(h_first)} users)")
-    return B if dtype == torch.float32 else B.to(dtype)
+    return B if dtype == torch.float32 else row_padded(n_items, n_items, dtype, dev).copy_(B)
+
+
+def padded_cols(n: int, dtype: torch.dtype) -> int:
+    """Row length, in elements, of the storage of an ``n``-column chain
+    operand: ``n`` rounded up to 16 bytes in bf16, ``n`` itself in f32.
+
+    cuBLAS's Hopper bf16 GEMMs need 16-byte row strides and a 16-byte
+    reduction length where it is the contiguous dimension; short of that a
+    bf16 product falls back to an sm75 kernel that loads one element at a
+    time, at a fifth of the speed on B_ii. The f32 products run CUDA-core
+    kernels that load 16 bytes at any stride, and pad no faster."""
+    return -(-n // 8) * 8 if dtype == torch.bfloat16 else n
+
+
+def row_padded(rows: int, cols: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A zeroed [rows, cols] view of [rows, ``padded_cols(cols)``] storage."""
+    return torch.zeros(rows, padded_cols(cols, dtype), dtype=dtype, device=device)[:, :cols]
+
+
+def _over_padding(op: torch.Tensor) -> torch.Tensor:
+    """``op`` [r, c] read over its storage's row padding: the [r, stride]
+    view with the same rows, or ``op`` when it has no padding to read."""
+    (r, c), ld = op.shape, op.stride(0)
+    if op.stride(1) != 1 or ld <= c:
+        return op
+    if op.storage_offset() + r * ld > op.untyped_storage().nbytes() // op.element_size():
+        return op
+    return op.as_strided((r, ld), (ld, 1), op.storage_offset())
+
+
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether a GEMM operand's row length or row stride leaves :func:`padded_cols`."""
+    return any(padded_cols(n, t.dtype) != n for n in (t.shape[1], t.stride(0)))
+
+
+def item_op_mm(op: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[r, n] f32 ``op @ x`` for B_ii, or a band of its rows, and ``x``
+    [I, n] in its dtype (``mm_f32``).
+
+    On the card a row-padded ``op`` (:func:`build_item_operator`) is read
+    whole, its padding columns against zero rows appended to ``x``, so that
+    the reduction runs over ``padded_cols(I)`` and cuBLAS takes its aligned
+    kernels in both directions. The padding must hold finite numbers (the
+    build's are zeros): each meets a zero. The CPU's BLAS needs no
+    alignment, and reads ``op`` as it is (a longer reduction would change
+    its blocking, so its sums). Counts ``ops.item_chain.unaligned`` when
+    the operands cuBLAS would get are not aligned."""
+    full = _over_padding(op)
+    if _misaligned(full) or _misaligned(x):
+        count("ops.item_chain.unaligned")
+    if full is op or not op.is_cuda:
+        return mm_f32(op, x)
+    return mm_f32(full, F.pad(x, (0, 0, 0, full.shape[1] - op.shape[1])))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -460,10 +522,13 @@ class FastBipartite:
     path. Each CSR left None is built from ``split`` on ``item_op``'s device,
     so ``FastBipartite(split, item_op)`` is the JAX package's plan-less form.
     ``build_seconds`` records :func:`build_fast_bipartite`'s phases
-    (``item_op``, ``plans``: the plans or the CSRs)."""
+    (``item_op``, ``plans``: the plans or the CSRs). A bf16 ``item_op`` is
+    a view of row-padded storage (:func:`build_item_operator`), which
+    ``.contiguous()`` and ``.clone()`` drop: the chain's GEMMs then leave
+    cuBLAS's aligned kernels."""
 
     split: BipartiteSplit
-    item_op: torch.Tensor  # [I, I] B_ii (f32 or bf16)
+    item_op: torch.Tensor  # [I, I] B_ii: f32, or bf16 over row-padded storage
     fops: FastOps | None = None
     user_csr: ArcCsr | None = None
     item_csr: ArcCsr | None = None
@@ -548,30 +613,40 @@ def item_chain_core(E_u, E_i, to_items_fn, B, num_layers: int, alpha):
     i^{l-1}]``, so B streams once per pair of layers. Differentiable in
     ``E_u`` and ``E_i`` (B carries no gradient).
 
-    ``B`` is the dense [n_items, n_items] operator, or a callable with a
-    ``dtype`` that returns the [n_items, n] f32 product ``B @ x`` for an
-    [n_items, n] ``x`` in that dtype (the fast edge partition's row-banded
-    B_ii, ``parallel/edge_partition_fast.py:ItemBand``)."""
+    ``B`` is the dense [n_items, n_items] operator (:func:`item_op_mm`), or
+    a callable with a ``dtype`` that returns the [n_items, n] f32 product
+    ``B @ x`` for an [n_items, n] ``x`` in that dtype (the fast edge
+    partition's row-banded B_ii, ``parallel/edge_partition_fast.py:ItemBand``).
+    Each right-hand side gets zero columns up to ``padded_cols`` (a bf16
+    pair of width 90 is 184 wide); its product's extra columns are dropped."""
     if B is None:
         raise ValueError("item_chain_core needs the item-item operator B_ii")
-    product = B if callable(B) else functools.partial(mm_f32, B)
+    product = B if callable(B) else functools.partial(item_op_mm, B)
     with span("ops.item_chain"):
         i_seq = [E_i.float(), to_items_fn(E_u)]
         D = E_i.shape[1]
         l = 2
         while l <= num_layers:
             if l + 1 <= num_layers:
-                both = torch.cat([i_seq[l - 2].to(B.dtype), i_seq[l - 1].to(B.dtype)], dim=1)
-                nxt = product(both)
-                i_seq.append(nxt[:, :D])
-                i_seq.append(nxt[:, D:])
+                nxt = product(_rhs(i_seq[l - 2 : l], B.dtype))
+                i_seq += [nxt[:, :D], nxt[:, D : 2 * D]]
                 l += 2
             else:
-                i_seq.append(product(i_seq[l - 2].to(B.dtype)))
+                i_seq.append(product(_rhs(i_seq[l - 2 : l - 1], B.dtype))[:, :D])
                 l += 1
         out_i = sum(alpha[l] * i_seq[l] for l in range(num_layers + 1))
         S_i = sum(alpha[l] * i_seq[l - 1] for l in range(1, num_layers + 1))
     return out_i, S_i
+
+
+def _rhs(parts: list, dtype: torch.dtype) -> torch.Tensor:
+    """``parts`` side by side in ``dtype``, with zero columns appended up to
+    :func:`padded_cols`."""
+    cols = [p.to(dtype) for p in parts]
+    n = sum(c.shape[1] for c in cols)
+    if padded_cols(n, dtype) > n:
+        cols.append(cols[0].new_zeros(cols[0].shape[0], padded_cols(n, dtype) - n))
+    return torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
 
 
 def _item_chain(params: dict, fb: FastBipartite, num_layers: int, alpha):

@@ -46,7 +46,9 @@ import torch
 from ..device import divisor, mm_f32
 from ..models.lightgcn import uniform_alphas
 from ..models.losses import bpr_loss
-from ..ops.bipartite import _DTYPES, BipartiteSplit, batch_messages, heavy_tail, item_chain_core
+from ..ops.bipartite import (
+    _DTYPES, BipartiteSplit, batch_messages, heavy_tail, item_chain_core, item_op_mm,
+)
 from ..ops.spmm_fast import build_segreduce_plan
 from ..ops.spmm_sharded import PlanStack, local_segreduce, user_rows_per_shard
 from ..train.step import make_train_fns
@@ -125,7 +127,7 @@ class _BandProduct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, band: ItemBand):
         ctx.band, ctx.dtype = band, x.dtype
-        part = mm_f32(band.rows, x)
+        part = item_op_mm(band.rows, x)
         if part.shape[0] < band.band:
             part = torch.cat([part, part.new_zeros(band.band - part.shape[0], part.shape[1])])
         return all_gather_rows(part, band.mesh, AXIS)[: band.n_items]

@@ -56,7 +56,7 @@ from ..device import resolve_device
 from ..eval.evaluate import build_eval_buckets, evaluate_bucketed
 from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig, get_embedding, init_params
-from ..ops.bipartite import build_fast_bipartite, fast_batch_embeddings, fast_get_embedding
+from ..ops.bipartite import build_fast_bipartite, fast_batch_embeddings, fast_get_embedding, row_padded
 from ..parallel.distributed import barrier, joined_world, world_rank
 from ..sampling.bpr import make_sampler_data
 from .checkpoint import (
@@ -679,6 +679,15 @@ def _train_impl(
     )
 
 
+def _own_band(layout):
+    """``layout`` with its own copy of this rank's B_ii band (a view until
+    then), so that the rest of B_ii can be freed. The copy keeps B_ii's row
+    padding (``ops.bipartite.row_padded``), which ``.clone()`` would drop."""
+    rows = layout.item_op.rows
+    own = row_padded(*rows.shape, rows.dtype, rows.device).copy_(rows)
+    return dataclasses.replace(layout, item_op=dataclasses.replace(layout.item_op, rows=own))
+
+
 def _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch: int, n_mesh: int,
                  dev, edge_cap: int, log, build_with_retry):
     """Lay the run out on a mesh of the world's ``n_mesh`` ranks (the JAX
@@ -698,12 +707,6 @@ def _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch: 
         p = to_layout(params)
         return p, optimizer.init(p) if start_epoch == 0 else to_layout(opt_state)
 
-    def own_band(layout):
-        """``layout`` with its own copy of this rank's B_ii band (a view
-        until then), so that the rest of B_ii can be freed."""
-        band = layout.item_op
-        return dataclasses.replace(layout, item_op=dataclasses.replace(band, rows=band.rows.clone()))
-
     if config.partition == "edge" and config.fast_bipartite != "off":
         from ..ops.bipartite import build_item_operator, split_graph
         from ..parallel.edge_partition_fast import (
@@ -715,7 +718,7 @@ def _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch: 
         item_op = build_with_retry(
             lambda: build_item_operator(split, dtype=op_dtype, device=dev), "item-operator build"
         )
-        fep = own_band(build_fast_edge_partition(
+        fep = _own_band(build_fast_edge_partition(
             split, mesh, item_op, msgs_dtype=mode, heavy_users=config.heavy_users, heavy_dtype=mode
         ))
         del item_op
@@ -761,7 +764,7 @@ def _mesh_branch(config, cfg, graph, params, opt_state, optimizer, start_epoch: 
             lambda: build_fast_bipartite(graph, dtype=op_dtype, device=dev),
             "fast-bipartite build",
         )
-        step_graph = own_band(shard_fast_bipartite(
+        step_graph = _own_band(shard_fast_bipartite(
             fb, mesh, fast_ops=True, msgs_dtype=mode, heavy_users=config.heavy_users,
             heavy_dtype=mode,
         ))

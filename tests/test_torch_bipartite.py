@@ -10,7 +10,7 @@ from gnn_ecommerce_tpu.models import LightGCNConfig as JaxConfig
 from gnn_ecommerce_tpu.models import get_embedding as jax_get_embedding
 from gnn_ecommerce_tpu.ops import bipartite as jbip
 from gnn_ecommerce_tpu_torch.convert import params_to_numpy, params_to_torch
-from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, get_embedding, init_params
+from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, get_embedding, init_params, uniform_alphas
 from gnn_ecommerce_tpu_torch.ops import bipartite as tbip
 from torch_port_case import graphs, normal, small_arcs
 
@@ -164,3 +164,114 @@ def test_resolve_device_sets_exact_f32_and_mm_f32_checks_it(monkeypatch):
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
     torch.testing.assert_close(mm_f32(a, a.T), torch.full((2, 2), 3.0))
+
+
+# --- B_ii's row-padded layout and the chain over it --------------------------
+
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def odd():
+    """A port split with an odd item count, so that no row of B_ii is 16-byte
+    aligned unless padded."""
+    _, tgraph = graphs(*small_arcs(seed=5, n_i=61))
+    return tbip.split_graph(tgraph)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_item_operator_is_a_view_of_row_padded_storage(odd, dtype):
+    B = tbip.build_item_operator(odd, dtype=_TDT[dtype], device="cpu")
+    n = odd.n_items
+    assert B.shape == (n, n) and B.stride(1) == 1 and n % 2 == 1
+    assert B.stride(0) == tbip.padded_cols(n, B.dtype)
+    if dtype == "bfloat16":  # the tensor cores' operand: 16-byte rows, padding zero
+        assert B.stride(0) * B.element_size() % 16 == 0 and B.stride(0) > n
+        full = tbip._over_padding(B)
+        assert full.shape == (n, B.stride(0)) and not full[:, n:].any()
+    else:  # f32 GEMMs align themselves: the accumulator, contiguous
+        assert B.is_contiguous()
+    assert torch.equal(B, B.contiguous())
+
+
+def _chain(B, layers, dim, seed=0, grad=False):
+    g = torch.Generator().manual_seed(seed)
+    E_u, E_i = (torch.randn(B.shape[0], dim, generator=g).requires_grad_(grad) for _ in range(2))
+    alpha = uniform_alphas(layers)
+    out_i, S_i = tbip.item_chain_core(E_u, E_i, lambda x: x, B, layers, alpha)
+    assert out_i.shape == S_i.shape == (B.shape[0], dim)
+    if not grad:
+        return out_i, S_i
+    return torch.autograd.grad((out_i * out_i).sum() + S_i.sum(), (E_u, E_i))
+
+
+@pytest.mark.parametrize("layers", [3, 4, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chain_over_padded_operator_equals_contiguous(odd, dtype, layers):
+    """Pairs of width 18 and singles of 9 get zero columns (to 24 and 16 in
+    bf16); the padded operator gives the contiguous one's sums bit for bit."""
+    B = tbip.build_item_operator(odd, dtype=_TDT[dtype], device="cpu")
+    for got, want in zip(_chain(B, layers, 9), _chain(B.contiguous(), layers, 9)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chain_backward_over_padded_operator_equals_contiguous(odd, dtype):
+    B = tbip.build_item_operator(odd, dtype=_TDT[dtype], device="cpu")
+    for got, want in zip(_chain(B, 5, 9, grad=True), _chain(B.contiguous(), 5, 9, grad=True)):
+        assert torch.equal(got, want)
+
+
+def test_unaligned_counter_reads_zero_on_the_built_layout(odd):
+    from gnn_ecommerce_tpu_torch import tracing
+
+    def unaligned(B, layers):
+        with tracing.recording():
+            _chain(B, layers, 9)
+        return tracing.report()["counters"].get("ops.item_chain.unaligned", 0)
+
+    B = tbip.build_item_operator(odd, dtype=torch.bfloat16, device="cpu")
+    f32 = tbip.build_item_operator(odd, dtype=torch.float32, device="cpu")
+    assert unaligned(B, 5) == unaligned(B, 4) == unaligned(f32, 5) == 0
+    assert unaligned(B.contiguous(), 5) == unaligned(B.contiguous(), 4) == 2
+
+
+def test_product_over_the_padding_matches_the_logical_one(odd):
+    """The card's form of ``item_op_mm`` (the rows read whole, against zero
+    rows of x), and its gradient, against the logical [I, I] product."""
+    from gnn_ecommerce_tpu_torch.device import mm_f32
+
+    B = tbip.build_item_operator(odd, dtype=torch.bfloat16, device="cpu")
+    full = tbip._over_padding(B)
+    pad = full.shape[1] - B.shape[0]
+    x = torch.randn(B.shape[0], 24, generator=torch.Generator().manual_seed(1))
+    x = x.to(torch.bfloat16).requires_grad_(True)
+    wide = mm_f32(full, torch.nn.functional.pad(x, (0, 0, 0, pad)))
+    want = mm_f32(B, x)
+    tol = dict(rtol=1e-6, atol=1e-6 * want.abs().max().item())
+    torch.testing.assert_close(wide, want, **tol)
+    g = torch.randn(want.shape, generator=torch.Generator().manual_seed(2))
+    (gw,), (gl,) = torch.autograd.grad(wide, x, g), torch.autograd.grad(want, x, g)
+    assert torch.equal(gw, gl)
+    # A band of rows (the mesh's ItemBand) widens the same way.
+    band = tbip._over_padding(B[10:30])
+    assert band.shape == (20, full.shape[1]) and torch.equal(band, full[10:30])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mesh_band_copy_keeps_the_row_padding(odd, dtype):
+    import dataclasses
+
+    from gnn_ecommerce_tpu_torch.parallel.edge_partition_fast import ItemBand
+    from gnn_ecommerce_tpu_torch.train.driver import _own_band
+
+    @dataclasses.dataclass(frozen=True)
+    class Layout:
+        item_op: ItemBand
+
+    B = tbip.build_item_operator(odd, dtype=_TDT[dtype], device="cpu")
+    view = B[32:]
+    own = _own_band(Layout(ItemBand(view, 32, B.shape[0], None))).item_op.rows
+    assert torch.equal(own, view) and own.untyped_storage().data_ptr() != B.untyped_storage().data_ptr()
+    assert own.stride() == B.stride() == (tbip.padded_cols(B.shape[0], B.dtype), 1)
+    assert tbip._over_padding(own).shape == (view.shape[0], B.stride(0))
