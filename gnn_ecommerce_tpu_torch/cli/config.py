@@ -2,9 +2,11 @@
 
 Counterpart of ``gnn_ecommerce_tpu/cli/config.py``: one dataclass covers
 paths, the edge weighting scheme, the training hyperparameters (the port's
-``TrainConfig``), eval K and the mesh spec. YAML files need PyYAML, which is
-imported only by :meth:`FrameworkConfig.load` and :meth:`FrameworkConfig.dump`:
-without it they raise, and everything else works.
+``TrainConfig``, with its ``model``, ``lightgcn`` or ``simgcl``, and
+SimGCL's ``cl_weight``, ``cl_eps`` and ``cl_temp``), eval K and the mesh
+spec. YAML files need PyYAML, which is imported only by
+:meth:`FrameworkConfig.load` and :meth:`FrameworkConfig.dump`: without it
+they raise, and everything else works.
 """
 from __future__ import annotations
 

@@ -34,8 +34,8 @@ from ..eval.evaluate import build_eval_batch, evaluate
 from ..eval.metrics import mark_frame
 from ..explain.paths import build_adjacency, hit_paths_frame
 from ..graph.build import build_graph
-from ..models.lightgcn import LightGCNConfig, get_embedding
-from ..train.checkpoint import BEST_NAME, find_leaf, load_checkpoint
+from ..models.lightgcn import get_embedding
+from ..train.checkpoint import BEST_NAME, find_leaf, load_checkpoint, model_config
 
 
 def _pairs(split: EvalSplit, csr: CsrList) -> tuple[np.ndarray, np.ndarray]:
@@ -111,12 +111,7 @@ def main(argv=None) -> InferResult:
     t0 = time.perf_counter()
     prepared = load_prepared(args.data_dir)
     leaves, meta = load_checkpoint(args.checkpoint_dir, args.checkpoint_name)
-    hp = meta.get("hyperparams", {})
-    cfg = LightGCNConfig(
-        num_nodes=prepared.n_users + prepared.n_items,
-        embedding_dim=int(hp.get("latent_dim", 64)),
-        num_layers=int(hp.get("n_layers", 3)),
-    )
+    cfg = model_config(meta, prepared.n_users + prepared.n_items)
     params = params_to_torch({"embedding": find_leaf(leaves, meta, "embedding")}, dev)
     graph = build_graph(
         prepared.edge_user,

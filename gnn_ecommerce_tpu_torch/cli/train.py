@@ -3,6 +3,11 @@
     python -m gnn_ecommerce_tpu_torch.cli.train --synthetic -e 5
     python -m gnn_ecommerce_tpu_torch.cli.train --edges u_i_weight.csv -e 20
     python -m gnn_ecommerce_tpu_torch.cli.train --config framework.yaml
+    python -m gnn_ecommerce_tpu_torch.cli.train --edges u_i_weight.csv --fast bf16 --model simgcl
+
+``--model simgcl`` is the port's own, on one device with ``--fast f32`` or
+``bf16``; its ``cl_weight``, ``cl_eps`` and ``cl_temp`` keep the paper's
+values unless a ``--config`` file's ``train`` section sets them.
 
 Runs on ``cuda`` unless ``--device cpu`` is given. After the ETL, the
 prepared dataset artifact is saved to ``data_dir`` so that serving can
@@ -153,6 +158,10 @@ def main(argv=None):
         help="dense-heavy-user head size K for the fast path (0=off)",
     )
     ap.add_argument(
+        "--model", choices=["lightgcn", "simgcl"],
+        help="simgcl: two noised full-graph views and InfoNCE beside BPR (needs --fast)",
+    )
+    ap.add_argument(
         "--checkpoint-every", type=int,
         help="save LAST every N epochs (0 = only at the end)",
     )
@@ -211,6 +220,8 @@ def main(argv=None):
         cfg.train.fast_bipartite = args.fast
     if args.heavy_users is not None:
         cfg.train.heavy_users = args.heavy_users
+    if args.model:
+        cfg.train.model = args.model
     if args.checkpoint_every is not None:
         cfg.train.checkpoint_every = args.checkpoint_every
     cfg.train.mesh_devices = cfg.mesh_devices

@@ -39,7 +39,7 @@ from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig
 from ..ops.bipartite import build_fast_bipartite, fast_get_embedding
 from ..tracing import span
-from ..train.checkpoint import BEST_NAME, find_leaf, load_checkpoint
+from ..train.checkpoint import BEST_NAME, find_leaf, load_checkpoint, model_config
 from .quantized import QuantizedCache
 
 
@@ -159,12 +159,7 @@ class RecommenderService:
 
     @staticmethod
     def _config(meta: dict, prepared: PreparedData, default: LightGCNConfig) -> LightGCNConfig:
-        hp = meta.get("hyperparams", {})
-        return LightGCNConfig(
-            num_nodes=prepared.n_users + prepared.n_items,
-            embedding_dim=int(hp.get("latent_dim", default.embedding_dim)),
-            num_layers=int(hp.get("n_layers", default.num_layers)),
-        )
+        return model_config(meta, prepared.n_users + prepared.n_items, default)
 
     @staticmethod
     def _checkpoint_params(leaves, meta, cfg: LightGCNConfig, device) -> dict:

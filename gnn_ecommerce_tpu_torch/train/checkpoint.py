@@ -7,6 +7,10 @@ either package loads and resumes in the other:
     <dir>/<name>/meta.json        epoch, metrics, hyperparams, timestamp,
                                   npz_sha256, num_leaves, leaf_paths
 
+A SimGCL run's ``hyperparams`` also hold ``model`` and ``layer_weights``
+(``[0, 1/L, …, 1/L]``), which :func:`model_config` hands to whatever
+scores the checkpoint; the JAX package's keys are the same for both models.
+
 The leaves are in the JAX package's tree order, with its key paths: the
 params by sorted name (``[0]['embedding']``), then the Adam state as optax
 lays it out (``[1][0].count``, ``[1][0].mu['embedding']``,
@@ -28,6 +32,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from ..models.lightgcn import LightGCNConfig
 from ..parallel.distributed import world_rank
 from .step import AdamState
 
@@ -133,6 +138,21 @@ def load_checkpoint(directory: str, name: str = BEST_NAME) -> tuple[list, dict]:
     with np.load(io.BytesIO(blob)) as data:
         leaves = [data[f"leaf_{i}"] for i in range(meta["num_leaves"])]
     return leaves, meta
+
+
+def model_config(meta: dict, num_nodes: int, default: LightGCNConfig | None = None) -> LightGCNConfig:
+    """The configuration a checkpoint scores with: its width and depth
+    (``default``'s, else 64 and 3, where the meta lacks them) and its layer
+    weights (``layer_weights``; uniform where absent, as LightGCN's)."""
+    hp = meta.get("hyperparams", {})
+    default = default or LightGCNConfig(num_nodes)
+    weights = hp.get("layer_weights")
+    return LightGCNConfig(
+        num_nodes=num_nodes,
+        embedding_dim=int(hp.get("latent_dim", default.embedding_dim)),
+        num_layers=int(hp.get("n_layers", default.num_layers)),
+        alpha=None if weights is None else tuple(float(a) for a in weights),
+    )
 
 
 def find_leaf(leaves: list, meta: dict, needle: str, prefix: str = "[0]"):

@@ -4,10 +4,12 @@ checkpointing, structured logging and resume.
 Counterpart of ``gnn_ecommerce_tpu/train/driver.py``: on one device the
 layered branch (``fast_bipartite="off"``) and the fast branches (``"f32"``
 exact, ``"bf16"`` the main configuration) with the batched train forward
-``fast_batch_embeddings``; on a mesh (one ``torch.distributed`` process
-per device, every process running this driver) the JAX driver's three
-branches: ``partition="edge"`` with the fast
-edge partition (``parallel/edge_partition_fast.py``) or, with
+``fast_batch_embeddings`` (for ``model="simgcl"``, ``models/simgcl.py``'s
+loss, whose noise generator is reseeded every epoch as the sampler's is,
+and the layer weights ``[0, 1/L, …]`` in eval and the checkpoints); on a
+mesh (one ``torch.distributed`` process per device, every process running
+this driver) the JAX driver's three branches: ``partition="edge"`` with the
+fast edge partition (``parallel/edge_partition_fast.py``) or, with
 ``fast_bipartite="off"``, the explicit one (``parallel/edge_partition.py``),
 and ``partition="gspmd"`` (``parallel/sharded_train.py``), each evaluated
 by ``parallel/sharded_eval.py``. On a mesh, rank 0 alone logs and writes
@@ -56,6 +58,7 @@ from ..device import resolve_device
 from ..eval.evaluate import build_eval_buckets, evaluate_bucketed
 from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig, get_embedding, init_params
+from ..models.simgcl import make_simgcl_loss_fn, simgcl_alphas
 from ..ops.bipartite import build_fast_bipartite, fast_batch_embeddings, fast_get_embedding, row_padded
 from ..parallel.distributed import barrier, joined_world, world_rank
 from ..sampling.bpr import make_sampler_data
@@ -113,15 +116,30 @@ class TrainConfig:
     # seconds it idles T*(1-d)/d before taking the next snapshot (flush and
     # stop cut the idle short). 1.0 writes back to back.
     async_save_duty: float = 0.5
+    # "lightgcn", or "simgcl" (models/simgcl.py: two noised full-graph views
+    # and InfoNCE beside the BPR step; the one-device fast branches only).
+    model: str = "lightgcn"
+    # SimGCL's λ (the InfoNCE terms' weight), ε (the noise rows' length)
+    # and τ (InfoNCE's temperature).
+    cl_weight: float = 0.5
+    cl_eps: float = 0.1
+    cl_temp: float = 0.2
 
     def hyperparams(self) -> dict:
-        return {
+        """The checkpoint's meta: the JAX package's keys, and for SimGCL its
+        model, its layer weights (what eval, ``cli.infer`` and the service
+        score with) and its contrastive settings."""
+        hp = {
             "latent_dim": self.latent_dim,
             "n_layers": self.n_layers,
             "LR": self.lr,
             "DECAY": self.decay,
             "BATCH_SIZE": self.batch_size,
         }
+        if self.model == "simgcl":
+            hp.update(model="simgcl", layer_weights=list(simgcl_alphas(self.n_layers)),
+                      cl_weight=self.cl_weight, cl_eps=self.cl_eps, cl_temp=self.cl_temp)
+        return hp
 
 
 @dataclasses.dataclass
@@ -139,6 +157,12 @@ def _epoch_seed(seed: int, epoch: int) -> int:
     """The sampler's seed for one epoch: a resumed run draws the batches an
     uninterrupted run would have."""
     return seed * 1_000_003 + 1000 + epoch
+
+
+def _noise_seed(seed: int, epoch: int) -> int:
+    """SimGCL's noise generator's seed for one epoch, apart from the
+    sampler's."""
+    return _epoch_seed(seed, epoch) + (1 << 32)
 
 
 def _sync(dev: torch.device) -> None:
@@ -348,6 +372,14 @@ def _train_impl(
     on_mesh = n_mesh > 1 or joined_world()
     if on_mesh and config.partition not in ("gspmd", "edge"):
         raise ValueError(f"partition must be gspmd or edge: {config.partition!r}")
+    if config.model not in ("lightgcn", "simgcl"):
+        raise ValueError(f"model must be lightgcn or simgcl: {config.model!r}")
+    simgcl = config.model == "simgcl"
+    if simgcl and (on_mesh or config.fast_bipartite == "off"):
+        raise ValueError(
+            "model simgcl trains on one device with fast_bipartite f32 or bf16 (its views run the "
+            "fast plans); the mesh branches and the layered branch train lightgcn only"
+        )
     is_main = rank == 0
     t_setup0 = time.perf_counter()
     os.makedirs(config.checkpoint_dir, exist_ok=True)
@@ -377,7 +409,8 @@ def _train_impl(
     t_graph_s = time.perf_counter() - t_setup0
 
     cfg = LightGCNConfig(
-        num_nodes=graph.num_nodes, embedding_dim=config.latent_dim, num_layers=config.n_layers
+        num_nodes=graph.num_nodes, embedding_dim=config.latent_dim, num_layers=config.n_layers,
+        alpha=simgcl_alphas(config.n_layers) if simgcl else None,
     )
     params = init_params(torch.Generator().manual_seed(config.seed), cfg, device=dev)
     optimizer = Adam(config.lr)
@@ -412,6 +445,7 @@ def _train_impl(
     ckpt_view = lambda tree: tree
     post_restore = lambda p: p
     mesh = None
+    noise_gen = None  # SimGCL's, reseeded every epoch
     bf16 = config.fast_bipartite == "bf16"
     mode = "bfloat16" if bf16 else "float32"
     edge_cap = config.batch_edge_cap or max(64 * config.batch_size, 8192)
@@ -448,15 +482,25 @@ def _train_impl(
             "plans_s": fb.build_seconds["plans"],
         })
         graph = None  # superseded by fb
-        _, run_steps = make_train_fns(
-            cfg, optimizer, config.batch_size, config.decay,
-            sample_replace=config.sample_replace,
-            batch_embed_fn=lambda p, fb_, u, po, ne: fast_batch_embeddings(
-                p, fb_, cfg.num_layers, u, po, ne, edge_cap=edge_cap
-            ),
-        )
+        if simgcl:
+            noise_gen = torch.Generator(device=dev)
+            _, run_steps = make_train_fns(
+                cfg, optimizer, config.batch_size, config.decay,
+                sample_replace=config.sample_replace,
+                loss_fn=make_simgcl_loss_fn(cfg, config.decay, config.cl_weight, config.cl_eps,
+                                            config.cl_temp, edge_cap, noise_gen),
+            )
+            compute_embedding = lambda p: fast_get_embedding(p, fb, cfg.num_layers, alpha=cfg.alphas(dev))
+        else:
+            _, run_steps = make_train_fns(
+                cfg, optimizer, config.batch_size, config.decay,
+                sample_replace=config.sample_replace,
+                batch_embed_fn=lambda p, fb_, u, po, ne: fast_batch_embeddings(
+                    p, fb_, cfg.num_layers, u, po, ne, edge_cap=edge_cap
+                ),
+            )
+            compute_embedding = lambda p: fast_get_embedding(p, fb, cfg.num_layers)
         step_graph = fb
-        compute_embedding = lambda p: fast_get_embedding(p, fb, cfg.num_layers)
     else:
         _, run_steps = make_train_fns(
             cfg, optimizer, config.batch_size, config.decay,
@@ -553,6 +597,8 @@ def _train_impl(
     for epoch in range(start_epoch, config.epochs):
         profiling = config.profile_dir and epoch == min(config.profile_epoch, config.epochs - 1)
         generator = torch.Generator(device=dev).manual_seed(_epoch_seed(config.seed, epoch))
+        if noise_gen is not None:
+            noise_gen.manual_seed(_noise_seed(config.seed, epoch))
         t0 = time.perf_counter()
         with _profiler(dev) if profiling else contextlib.nullcontext() as prof:
             params, opt_state, metrics = run_steps(
@@ -578,6 +624,7 @@ def _train_impl(
             "val_precision": precision,
             "val_recall": recall,
             "dropped_arcs": metrics["dropped_arcs"],
+            **({"cl_loss": metrics["loss"] - metrics["bpr_loss"] - metrics["reg_loss"]} if simgcl else {}),
             "train_s": t_train,
             "eval_s": t_total - t_train,
             "epoch_s": t_total,

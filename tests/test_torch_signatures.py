@@ -7,8 +7,8 @@ that the port's module also defines. The port's parameter names must start
 with JAX's, in order and of the same kind (JAX's private ``_``-prefixed
 parameters aside); only trailing port-only parameters (``device``) may
 follow. ``DELIBERATE`` lists the differences kept on purpose, each with the
-reason that ``ROADMAP.md`` §3 records; an entry that no longer differs, or
-that §3 does not name, fails.
+reason that ``ROADMAP.md``'s "Faults in the port against the reference" records;
+an entry that no longer differs, or that the section does not name, fails.
 
 Then each signature repaired to JAX's is called positionally and by keyword
 in both packages on the same numpy inputs (the tolerance stated at each).
@@ -37,7 +37,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_PKG, PORT_PKG = "gnn_ecommerce_tpu", "gnn_ecommerce_tpu_torch"
 
 # Module-relative names of the deliberate differences, with their reasons
-# (ROADMAP.md §3, "Deliberate differences").
+# (ROADMAP.md, "Faults in the port against the reference").
 DELIBERATE = {
     "data.prepare.PreparedData.__init__": "ETL: the port's containers carry no pandas frames",
     "data.prepare.prepare_splits": "ETL: numpy Edges in the place of JAX's three frames",
@@ -132,15 +132,15 @@ def test_signatures_keep_jax_order(module):
 
 def test_deliberate_differences_are_real_and_recorded():
     text = (ROOT / "ROADMAP.md").read_text()
-    section = text[text.index("### 3. Faults in the port"): text.index("## Recent")]
+    section = text[text.index(". Faults in the port against the reference"): text.index("## Recent")]
     found = {}
     for module in {k.rsplit(".", 2)[0] if k.endswith(".__init__") else k.rsplit(".", 1)[0]
                    for k in DELIBERATE}:
         found.update(_mismatches(module))
     for key in DELIBERATE:
-        assert key in found, f"{key} no longer differs: drop it from DELIBERATE and ROADMAP §3"
+        assert key in found, f"{key} no longer differs: drop it from DELIBERATE and ROADMAP"
         name = key.removesuffix(".__init__").rsplit(".", 1)[-1]
-        assert f"`{name}" in section, f"ROADMAP.md §3 does not record {name}"
+        assert f"`{name}" in section, f"ROADMAP.md's faults section does not record {name}"
 
 
 # ---------------------------------------------------------------------------

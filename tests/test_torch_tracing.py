@@ -5,6 +5,7 @@ counters; under a torch profiler each span (and each mark, which is never
 recorded) is a host ``cpu_op`` event, not a user annotation; and the spans of the training step, the service's refresh
 and the fast-bipartite build appear where those paths run. Also the
 batcher's queue-wait and dispatch counters."""
+import contextlib
 import re
 import threading
 import time
@@ -161,6 +162,43 @@ def test_run_steps_spans_once_a_step():
     kids = sum(spans[k]["host_ms"] for k in STEP_SPANS[1:])
     assert kids <= spans["train.step"]["host_ms"]
     assert spans["train.step"]["self_host_ms"] == pytest.approx(spans["train.step"]["host_ms"] - kids)
+
+
+@pytest.mark.parametrize("recording", [True, False])
+def test_simgcl_step_spans_and_counters(recording):
+    """One SimGCL step: ``train.cl`` with two ``train.cl.view`` (each with a
+    ``train.cl.noise`` a layer) and one ``train.cl.infonce``; the counters
+    hold the rows noised and the arcs the views traverse. Off, nothing."""
+    from gnn_ecommerce_tpu_torch.models.simgcl import make_simgcl_loss_fn, simgcl_alphas
+
+    u, i, w, n_u, n_i, sampler = _tiny()
+    graph = build_graph(u, i, w, n_u, n_i, device="cpu")
+    fb = bip.build_fast_bipartite(graph, fast_ops=True, heavy_users=50, device="cpu")
+    sdata = make_sampler_data(sampler, n_u, n_i, "cpu")
+    params = {"embedding": torch.randn(n_u + n_i, DIM, generator=torch.Generator().manual_seed(0)) * 0.1}
+    opt = Adam(0.001)
+    state = opt.init(params)
+    cfg = LightGCNConfig(n_u + n_i, DIM, LAYERS, alpha=simgcl_alphas(LAYERS))
+    loss_fn = make_simgcl_loss_fn(cfg, 1e-4, 0.5, 0.1, 0.2, 4096, torch.Generator().manual_seed(2))
+    train_step, _ = make_train_fns(cfg, opt, BATCH, 1e-4, loss_fn=loss_fn)
+    gen = torch.Generator().manual_seed(1)
+    with tracing.recording():
+        pass  # drops what earlier tests kept
+    with tracing.recording() if recording else contextlib.nullcontext():
+        train_step(params, state, fb, sdata, gen)
+    rep = tracing.report()
+    if not recording:
+        assert rep == {"spans": {}, "counters": {}}
+        return
+    spans = rep["spans"]
+    for name, calls in (("train.cl", 1), ("train.cl.view", 2), ("train.cl.noise", 2 * LAYERS),
+                        ("train.cl.infonce", 1), ("train.forward", 1), ("train.backward", 1)):
+        assert spans[name]["calls"] == calls, name
+    for child, parent in (("train.cl", "train.step"), ("train.cl.view", "train.cl"),
+                          ("train.cl.noise", "train.cl.view"), ("train.cl.infonce", "train.cl")):
+        assert {parent_name(r) for r in records(child)} == {parent}, child
+    assert rep["counters"] == {"train.cl.noised_rows": 2 * LAYERS * (n_u + n_i),
+                               "train.cl.view_arcs": 2 * LAYERS * 2 * len(u)}
 
 
 def test_fast_bipartite_build_spans_and_verbose_phases(capsys):
