@@ -7,7 +7,7 @@ Phases, one printed line each (plus detail lines):
   0 device    the card's name and power limit (nvidia-smi), TF32 off; one
               Adam direction and one recall/precision call bit for bit
               against the host's f32 divisions
-  1 build     nvcc builds the five csrc/*.cu kernels for sm_90a, all at once
+  1 build     nvcc builds the six csrc/*.cu kernels for sm_90a, all at once
   2 data      a full-scale synthetic corpus made from --seed: 1,552,888 users
               x 54,571 items, 10,157,407 unique edges of which 5% are held
               out (half val, half test), leaving 9,649,537 train edges; Zipf
@@ -38,7 +38,14 @@ Phases, one printed line each (plus detail lines):
               bf16 tail plan: one K1 launch, then one accumulate launch
               per later bucket) against the unbucketed K1 and its plain
               version, timed beside its unpacked layout, the unbucketed K1
-              and its bound
+              and its bound; the ELL gather of fast_to_users
+              (csrc/ell_gather.cu) against its plain version, ell_apply,
+              within two f32 summation bounds, equal bytes twice, on the
+              corpus's own hubs: f32 over every users-bound arc at d 90
+              (the service's plan, hubs split into segments) and bf16 over
+              the tail beside the 16,384-user head at d 90, 80 and 64 (the
+              benchmark cells' widths), with kernel, plain, library
+              (torch.sparse.mm) and per-pass times and the bound
   4 forward   the RecommenderService (dim 90, 5 layers, f32) propagates once
               through the fast forward; its cache is held against the layered
               get_embedding on the card; forward time and a profiler breakdown
@@ -310,6 +317,7 @@ from gnn_ecommerce_tpu_torch.models.losses import bpr_loss, reg_loss
 from gnn_ecommerce_tpu_torch.models.svd import SVDConfig, pad_edges, svd_epoch
 from gnn_ecommerce_tpu_torch.ops._kernels import (
     ALL_KERNELS,
+    ELL_GATHER,
     LANE_GATHER,
     ROW_GATHER,
     SEGREDUCE,
@@ -342,6 +350,8 @@ from gnn_ecommerce_tpu_torch.ops.spmm_fast import (
     build_ell_plan,
     build_segreduce_plan,
     ell_apply,
+    ell_table,
+    gather_ell,
     gather_segreduce,
     gather_segreduce_bucketed,
     segreduce_plain,
@@ -439,6 +449,8 @@ KERNELS = {
     "segreduce_f32": (SEGREDUCE, "float32"),
     "segreduce_bf16": (SEGREDUCE, "bfloat16"),
     "segreduce_cast_bf16": (SEGREDUCE, "cast_bf16"),
+    "ell_gather_f32": (ELL_GATHER, "float32"),
+    "ell_gather_bf16": (ELL_GATHER, "bfloat16"),
     "stream_sum_bf16": (STREAM_SUM, "bfloat16"),
     "tile_segreduce_f32": (TILE_SEGREDUCE, "float32"),
     "tile_segreduce_bf16": (TILE_SEGREDUCE, "bfloat16"),
@@ -499,6 +511,12 @@ SVD_BROKEN_EPOCHS = (0, 1)
 # The on-card SVD epochs against the CPU's: rtol and atol (for parameters
 # near zero), as tests/test_torch_svd.py holds the CPU against optax.
 SVD_EPOCH_RTOL, SVD_EPOCH_ATOL = 1e-5, 1e-7
+# The ELL gather (csrc/ell_gather.cu, fast_to_users) at the benchmark cells'
+# widths and modes on phase 2's corpus: the service's f32 plan of every
+# arc, whose hubs it splits (.refresh), and the bf16 tail beside the
+# 16,384-user head (the three training cells; the first width is the row's).
+ELL_F32_DIM = 90
+ELL_BF16_DIMS = (90, 80, 64)
 # Widths of K1's edge cases: with f32, bf16 and padded bf16 tables they take
 # every (vector width, loads per arc) instance of csrc/segreduce.cu.
 K1_CASE_DIMS = (1, 33, 62, 64, 90, 127, 250, 255, 256)
@@ -1268,6 +1286,97 @@ def check_stream_sum(msgs: torch.Tensor) -> dict:
         "library_ms": library_ms,
         "rows": n,
     }
+
+
+def check_ell_gather(name: str, table: torch.Tensor, csr: tuple, gather) -> dict:
+    """The ELL gather (gather_ell) over the ELL plan of ``csr`` = (indptr,
+    src, w, n_out) against its plain version, ell_apply: each row within
+    two f32 summation bounds of a sum of its bin's W arcs (each row's arcs
+    add in another order), the same bytes from a second call, two launches
+    counted; then the dispatch's time (the table's cast or padding and the
+    kernel), the kernel's alone on its prepared table, per pass, the plain
+    version's, torch.sparse.mm's on a CSR of the same arcs and values
+    (library) and the bound (the gathered rows read once)."""
+    indptr, src, w, n_out = csr
+    dev, d = table.device, table.shape[1]
+    plan = build_ell_plan(indptr, src, w, n_out, device=dev)
+    mode = "float32" if gather is None else "bfloat16"
+    before = ELL_GATHER.launches[mode]
+    out = gather_ell(table, plan, gather)
+    assert torch.equal(out, gather_ell(table, plan, gather)), f"{name}: two calls gave different bytes"
+    assert ELL_GATHER.launches[mode] == before + 2, f"{name}: the kernel was not launched"
+    ref = ell_apply(table, plan, gather)
+    width = torch.repeat_interleave(
+        torch.tensor(plan.widths, dtype=torch.float32, device=dev),
+        torch.tensor([b.shape[0] for b in plan.idx], device=dev),
+    )[plan.inv_order.long()]
+    vals = table if gather is None else table.to(gather)
+    limit = 2 * width[:, None] * 2.0**-24 * ell_apply(vals.abs(), plan)  # the weights are positive
+    err = (out - ref).abs()
+    margin = (err / (limit + 1e-30)).max().item()
+    max_err, scale = err.max().item(), ref.abs().max().item()
+    assert margin <= 1, f"{name}: an error {margin:.3f} x the summation bound"
+    del out, ref, vals, limit, err, width
+    prepared = ell_table(table, gather)
+    n_arcs, rows_read = len(src), len(np.unique(src))
+    bytes_once = rows_read * d * prepared.element_size() + n_arcs * 8 + n_out * d * 4
+    flops = 2 * n_arcs * d
+    bound_ms = max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    kernel_ms = time_ms(lambda: gather_ell(table, plan, gather))
+    kernel_only_ms = time_ms(lambda: ELL_GATHER(prepared, plan))
+    plain_ms = time_ms(lambda: ell_apply(table, plan, gather), reps=5)
+    lib = torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(indptr, np.int64)).to(dev), torch.from_numpy(src.astype(np.int64)).to(dev),
+        torch.from_numpy(w).to(dev).to(prepared.dtype), size=(n_out, table.shape[0]),
+    )
+    dense = table.to(prepared.dtype).contiguous()
+    library_ms = time_ms(lambda: torch.sparse.mm(lib, dense))
+    del lib, dense
+    names = {"ell_rows": "rows", **({"ell_combine": "combine"} if plan.n_split_rows else {})}
+    passes = named_passes(name, lambda: ELL_GATHER(prepared, plan), names)
+    deg = np.diff(indptr)
+    stats = {
+        "arcs": n_arcs, "n_out": n_out, "table_rows": table.shape[0], "d": d, "mode": mode,
+        "ell_slots": plan.idx_flat.numel(), "bins": len(plan.widths), "widest_bin": plan.widths[-1],
+        "max_degree": int(deg.max()), "rows_over_64_arcs": int((deg > 64).sum()),
+        "split_arcs": plan.split_arcs, "split_rows": plan.n_split_rows, "segments": plan.n_segments,
+        "work_items": plan.n_work,
+    }
+    print(
+        f"  {name}: {json.dumps(stats)} max_abs_err {max_err:.3e} (max |ref| {scale:.3e}, "
+        f"{margin:.3f} of the summation bound) equal bytes on a second call; kernel_ms "
+        f"{kernel_ms:.4f} (kernel alone {kernel_only_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (torch.sparse.mm, {prepared.dtype} CSR and table) bound_ms {bound_ms:.4f}",
+        flush=True,
+    )
+    return {
+        **kernel_row(
+            name, "gnn_ecommerce_tpu_torch/csrc/ell_gather.cu",
+            "none: XLA in the JAX package (gnn_ecommerce_tpu/ops/spmm_fast.py ell_apply)",
+            max_err, kernel_ms, plain_ms, library_ms, bytes_once, flops,
+        ),
+        "kernel_only_ms": kernel_only_ms, "pass_ms": passes, "bound_margin": margin, **stats,
+    }
+
+
+def ell_gather_rows(split, tail: tuple, dev: torch.device, seed: int) -> list:
+    """The ELL gather's rows of the kernels line (check_ell_gather): f32
+    over every users-bound arc of ``split`` at ELL_F32_DIM, and bf16 over
+    the ``tail`` CSR (indptr, src, w) beside the heavy head at each of
+    ELL_BF16_DIMS, the first the row's and the others under ``dims``;
+    standard normal item tables made from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = lambda d: torch.randn(split.n_items, d, generator=gen, device=dev)
+    f32 = check_ell_gather(
+        "ell_gather_f32", table(ELL_F32_DIM),
+        (split.iu_indptr, split.iu_src_item, split.iu_w, split.n_users), None,
+    )
+    bf16 = [
+        check_ell_gather("ell_gather_bf16", table(d), (*tail, split.n_users), torch.bfloat16)
+        for d in ELL_BF16_DIMS
+    ]
+    bf16[0]["dims"] = {str(r["d"]): r for r in bf16[1:]}
+    return [f32, bf16[0]]
 
 
 def kernel_row(name, source, replaces, err, kernel_ms, plain_ms, library_ms, bytes_once, ops,
@@ -3226,6 +3335,8 @@ def main(argv=None) -> int:
         rows.append(check_stream_sum(msgs))
         del tail_plan, E_u, E_u16, msgs
         torch.cuda.empty_cache()
+        rows += ell_gather_rows(split, (t_iu_indptr, t_iu_src, t_iu_w), dev, args.seed)
+        torch.cuda.empty_cache()
         phase(3, "kernel", t0)
 
         # Serving path (phases 4-6): every launch count starts at 0 here.
@@ -3630,6 +3741,7 @@ def main(argv=None) -> int:
             row["accumulate_launches_by_path"] = {p: counts[acc] for p, counts in path_launches.items()}
         assert row["launches"] >= 1, f"{row['name']} was not launched on the main path"
     assert path_launches["train"]["segreduce_bf16"] >= 1
+    assert path_launches["train"]["ell_gather_bf16"] >= 1 and path_launches["serve"]["ell_gather_f32"] >= 1
     print(json.dumps({"kernels": rows}), flush=True)
     phase(11, "kernels", t0, f"launches by path {path_launches}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

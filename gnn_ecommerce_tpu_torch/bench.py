@@ -67,7 +67,7 @@ from .ops.propagate import propagate_segment_chunked
 from .ops.spmm_fast import (
     bf16_rows,
     build_bucketed_segreduce_plan,
-    ell_apply,
+    gather_ell,
     gather_segreduce,
     gather_segreduce_bucketed,
 )
@@ -301,7 +301,7 @@ def roofline(fb_plans: FastBipartite, fb_seg: FastBipartite, params: dict, layer
         ell_arcs = int(sum(int((w != 0).sum()) for w in fops.users_ell.w))
         phases["to_users_ell"] = phase_row(
             n_items * d * 4 + ell_arcs * 8 + n_users * d * 4, 2.0 * ell_arcs * d, "f32",
-            t(lambda: ell_apply(x_items, fops.users_ell, gather_dtype=torch.bfloat16)),
+            t(lambda: gather_ell(x_items, fops.users_ell, gather_dtype=torch.bfloat16)),
             arcs=ell_arcs,
         )
         for name, csr, n_out, x, run in (

@@ -210,6 +210,80 @@ class SegReduceKernel(_Kernel):
         return buf[:, :d]
 
 
+class EllGatherKernel(_Kernel):
+    """``csrc/ell_gather.cu``: out = Â · table over an ``EllPlan``
+    (``ops/spmm_fast.py``), each output row written once.
+
+    Modes ``"float32"`` and ``"bfloat16"`` (the table's type; weights are
+    f32 in both): one call is one row pass, plus one combine pass when the
+    plan splits rows (``plan.n_split_rows``)."""
+
+    STEM = "ell_gather"
+    MODES = ("float32", "bfloat16")
+    MAX_DIM = 256
+    MAX_BINS = 64  # the kernel keeps the bin descriptor in shared memory
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for fn in (lib.ell_gather_f32, lib.ell_gather_bf16):
+            fn.argtypes = [ptr, i64, i32, ptr, ptr, ptr, ptr, i32, i64, i64, i32, ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
+
+    @staticmethod
+    def takes_rows(table: torch.Tensor) -> bool:
+        """Whether the kernel reads ``table`` as it is: a [rows, D] f32 or
+        bf16 table of contiguous columns whose rows start 16-byte aligned and
+        whose storage holds each row's last 16-byte vector whole (a lane
+        reads 16 bytes; the columns past D are read and not used)."""
+        if table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16):
+            return False
+        n_rows, d = table.shape
+        per = 16 // table.element_size()
+        stride = table.stride(0)
+        if (d > 1 and table.stride(1) != 1) or stride < d or stride % per or table.data_ptr() % 16:
+            return False
+        end = table.storage_offset() + (n_rows - 1) * stride + -(-d // per) * per
+        return n_rows == 0 or end * table.element_size() <= table.untyped_storage().nbytes()
+
+    def __call__(self, table: torch.Tensor, plan) -> torch.Tensor:
+        """[n_out, D] f32 from a CUDA ``table`` in a layout of
+        :meth:`takes_rows`."""
+        modes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+        if not table.is_cuda:
+            raise ValueError("the ell_gather kernel takes a CUDA tensor")
+        if table.dtype not in modes:
+            raise TypeError(f"ell_gather table must be f32 or bf16, got {table.dtype}")
+        if not self.takes_rows(table):
+            raise ValueError("ell_gather takes [rows, D] tables of contiguous, 16-byte aligned rows")
+        d = table.shape[1]
+        if not 0 < d <= self.MAX_DIM:
+            raise ValueError(f"ell_gather supports 1 <= D <= {self.MAX_DIM}, got {d}")
+        if plan.order.device != table.device:  # the plan's tensors share one device
+            raise ValueError("plan and table must be on the same device")
+        n_bins = plan.bins.shape[0]
+        if n_bins > self.MAX_BINS:
+            raise ValueError(f"ell_gather takes at most {self.MAX_BINS} bins, the plan has {n_bins}")
+        mode = modes[table.dtype]
+        lib = self._lib or self.load()
+        fn = lib.ell_gather_bf16 if mode == "bfloat16" else lib.ell_gather_f32
+        out = torch.empty(plan.n_out, d, dtype=torch.float32, device=table.device)
+        partial = None
+        if plan.n_segments:
+            partial = torch.empty(plan.n_segments, d, dtype=torch.float32, device=table.device)
+        with _on_device(table.device):
+            rc = fn(
+                table.data_ptr(), table.stride(0), d, plan.idx_flat.data_ptr(),
+                plan.w_flat.data_ptr(), plan.order.data_ptr(), plan.bins.data_ptr(), n_bins,
+                plan.n_work, plan.n_split_rows, plan.split_arcs,
+                None if partial is None else partial.data_ptr(), out.data_ptr(),
+                _raw_stream(table.device),
+            )
+        if rc != 0:
+            raise RuntimeError(f"ell_gather launch failed: cudaError {rc}")
+        self.launches[mode] += 1
+        return out
+
+
 class StreamSumKernel(_Kernel):
     """``csrc/stream_sum.cu``: the [1, D] f32 column sums of a [rows, D] bf16
     stream, zero-initialized (K3, the segment reduce's streaming floor).
@@ -539,11 +613,12 @@ class LaneGatherKernel(_Kernel):
 
 
 SEGREDUCE = SegReduceKernel()
+ELL_GATHER = EllGatherKernel()
 STREAM_SUM = StreamSumKernel()
 TILE_SEGREDUCE = TileSegReduceKernel()
 ROW_GATHER = RowGatherKernel()
 LANE_GATHER = LaneGatherKernel()
-ALL_KERNELS = (SEGREDUCE, STREAM_SUM, TILE_SEGREDUCE, ROW_GATHER, LANE_GATHER)
+ALL_KERNELS = (SEGREDUCE, ELL_GATHER, STREAM_SUM, TILE_SEGREDUCE, ROW_GATHER, LANE_GATHER)
 
 
 def launch_counts() -> dict:

@@ -10,7 +10,7 @@ alternates sides of the bipartite graph, so every item layer l ≥ 2 is
 
 A forward is then two sparse products plus dense B_ii matmuls. With plans
 (``FastOps``) they are ``fast_to_items`` through the CUDA segment reduce and
-``fast_to_users`` through the ELL, and an optional dense head of the
+``fast_to_users`` through the CUDA ELL gather, and an optional dense head of the
 heaviest users (``w_hi``) takes their arcs out of both plans. Without plans
 (``FastBipartite.fops`` None, ``build_fast_bipartite``'s default) they are
 the sorted segment sums :func:`to_items` / :func:`to_users`.
@@ -31,8 +31,10 @@ Spans (``tracing.py``): ``ops.item_chain``, ``ops.to_items`` and
 ``ops.to_users`` (in either direction of the autograd pairs),
 ``ops.batch_users``; in set-up ``setup.split``, ``setup.plans`` and
 ``setup.item_op`` with a child for each phase of :func:`build_item_operator`.
-Counter: ``ops.item_chain.unaligned``, each B_ii product whose bf16
-operands leave the layout of :func:`padded_cols`.
+Counters: ``ops.item_chain.unaligned``, each B_ii product whose bf16
+operands leave the layout of :func:`padded_cols`; ``ops.to_users.split_rows``,
+the ELL rows that a CUDA ``to_users`` call split into segments (hubs of more
+than ``ELL_SPLIT_ARCS`` arcs: none beside a heavy head).
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ from .spmm_fast import (
     build_bucketed_segreduce_plan,
     build_ell_plan,
     build_segreduce_plan,
-    ell_apply,
+    gather_ell,
     gather_segreduce,
     gather_segreduce_bucketed,
 )
@@ -305,7 +307,9 @@ def _to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
 
 def _to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
     with span("ops.to_users"):
-        out = ell_apply(
+        if x_items.is_cuda:
+            count("ops.to_users.split_rows", fops.users_ell.n_split_rows)
+        out = gather_ell(
             x_items,
             fops.users_ell,
             gather_dtype=torch.bfloat16 if fops.msgs_dtype == "bfloat16" else None,
@@ -317,8 +321,9 @@ def _to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
 
 
 class _FastToItems(torch.autograd.Function):
-    """Forward ``Â_iu · x``; backward ``Â_ui · g``: the ELL (bf16 gather in
-    bf16 mode) and the head's ``w_hiᵀ``, as the JAX pair's VJP is."""
+    """Forward ``Â_iu · x``; backward ``Â_ui · g``: the ELL (the CUDA ELL
+    gather; bf16 rows in bf16 mode, weights f32) and the head's ``w_hiᵀ``,
+    as the JAX pair's VJP is."""
 
     @staticmethod
     def forward(ctx, x_users, fops):
@@ -352,7 +357,8 @@ def fast_to_items(x_users: torch.Tensor, fops: FastOps) -> torch.Tensor:
 
 def fast_to_users(x_items: torch.Tensor, fops: FastOps) -> torch.Tensor:
     """out_users = Â_ui · x_items [n_users, D] f32: the degree-binned ELL
-    (+ the head); differentiable, its gradient is :func:`fast_to_items`."""
+    through the CUDA ELL gather (+ the head); differentiable, its gradient
+    is :func:`fast_to_items`."""
     return _FastToUsers.apply(x_items, fops)
 
 

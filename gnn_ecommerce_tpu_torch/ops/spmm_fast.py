@@ -8,9 +8,11 @@ Counterpart of ``gnn_ecommerce_tpu/ops/spmm_fast.py``:
   (:func:`build_segreduce_plan`) cut into chunks of at most ``ch`` arcs,
   runs of short rows packed whole into one chunk (the sharded paths run
   the same kernel on users-side plans of rows of a few arcs);
-- ``to_users = Â_ui · x_items`` (gather from the small item table) is the
-  degree-binned ELL gather + width-sum :func:`ell_apply` in plain torch, as
-  the JAX package leaves it to XLA.
+- ``to_users = Â_ui · x_items`` (gather from the small item table) runs
+  the hand-written CUDA ELL gather ``csrc/ell_gather.cu`` through
+  :func:`gather_ell`, over a degree-binned ELL plan (:func:`build_ell_plan`)
+  whose rows it writes once each; its plain version is the gather +
+  width-sum :func:`ell_apply`, which the JAX package leaves to XLA.
 
 Both are exact restructurings of the segment sum; only the summation order
 differs. The src-bucketed to_items plan (:class:`BucketedSegReducePlan`,
@@ -27,24 +29,51 @@ import torch
 
 from .. import native
 from ..device import resolve_device
-from ._kernels import SEGREDUCE
+from ._kernels import ELL_GATHER, SEGREDUCE
 
 # ---------------------------------------------------------------------------
 # Degree-binned ELL (gather + width-sum; no scatter)
 # ---------------------------------------------------------------------------
 
+# A bin wider than this many arcs is split: each of its rows is cut into
+# segments of this many arcs (the last shorter), which the kernel sums
+# apart and adds in segment order. Only hubs split: with the main
+# configuration's 16,384-user head no tail row comes near it, without a
+# head (the service's f32 plan) the users of tens of thousands of arcs do.
+ELL_SPLIT_ARCS = 256
+# Columns of the kernel's bin descriptor (EllPlan.bins).
+ELL_BIN_COLS = ("first_item", "first_row", "width", "first_arc", "first_split_row")
+
 
 @dataclasses.dataclass(frozen=True)
 class EllPlan:
     """Rows grouped into degree bins; each bin is a dense [rows_b, W_b]
-    (index, weight) pair. Outputs come back in bin order and are un-permuted
-    by one row gather at ``inv_order``."""
+    (index, weight) pair, a view into one flat buffer of each. Outputs come
+    back in bin order and are un-permuted by one row gather at
+    ``inv_order`` (:func:`ell_apply`); the kernel (:func:`gather_ell`)
+    writes bin row r straight into output row ``order[r]``.
 
-    idx: tuple  # per bin: [rows_b, W_b] int32 rows of the table
-    w: tuple  # per bin: [rows_b, W_b] float32 normalized weights (0 = pad)
+    The kernel's work items, listed by ``bins`` widest bin first: one item
+    a row of a bin no wider than ``split_arcs``; ``ceil(W / split_arcs)``
+    items a row of a wider bin, its segments of ``split_arcs`` arcs in
+    order, whose sums (partial rows, item q in partial row q) are added in
+    segment order. Split bins are the widest, so their items come first."""
+
+    idx: tuple  # per bin: [rows_b, W_b] int32 rows of the table (views of idx_flat)
+    w: tuple  # per bin: [rows_b, W_b] float32 normalized weights, 0 = pad (views of w_flat)
     inv_order: torch.Tensor  # [n_out] int32; out = cat(bin outs)[inv_order]
     n_out: int
     widths: tuple
+    idx_flat: torch.Tensor  # [sum rows_b * W_b] int32, the bins one after the other
+    w_flat: torch.Tensor  # [sum rows_b * W_b] float32
+    order: torch.Tensor  # [n_out] int32: bin row -> output row (order[inv_order] = arange)
+    # [n_bins, 5] int64, widest bin first: ELL_BIN_COLS (first_split_row:
+    # n_split_rows for a bin that is not split)
+    bins: torch.Tensor
+    n_work: int  # the kernel's work items: rows of unsplit bins and segments of split ones
+    n_segments: int  # segments of split rows: the partial rows, items [0, n_segments)
+    n_split_rows: int  # rows of split bins
+    split_arcs: int
 
 
 def _ell_widths(max_deg: int) -> list[int]:
@@ -56,6 +85,23 @@ def _ell_widths(max_deg: int) -> list[int]:
     return ws
 
 
+def _ell_bins(spans: list, split_arcs: int) -> tuple:
+    """The kernel's descriptor of bins ``spans`` ((first row, rows, width,
+    first arc) each, in bin order): [n_bins, 5] int64 rows of
+    ELL_BIN_COLS, widest first, and (n_work, n_segments, n_split_rows)."""
+    recs, item, segs, split_row = [], 0, 0, 0
+    for lo, rows, width, arc in reversed(spans):
+        recs.append([item, lo, width, arc, split_row])
+        if width > split_arcs:
+            n_seg = rows * -(-width // split_arcs)
+            item, segs, split_row = item + n_seg, segs + n_seg, split_row + rows
+        else:
+            item += rows
+    table = np.array(recs, dtype=np.int64).reshape(-1, len(ELL_BIN_COLS))
+    table[table[:, 2] <= split_arcs, 4] = split_row
+    return table, (item, segs, split_row)
+
+
 def build_ell_plan(
     indptr: np.ndarray,
     src: np.ndarray,
@@ -64,14 +110,15 @@ def build_ell_plan(
     device: str | torch.device = "cuda",
 ) -> EllPlan:
     """Build from a CSR over destinations (``indptr`` [n_out+1] into
-    dst-sorted ``src``/``w`` arc arrays)."""
+    dst-sorted ``src``/``w`` arc arrays). Bins wider than ELL_SPLIT_ARCS
+    are split into segments for the kernel (:class:`EllPlan`)."""
     dev = resolve_device(device)
     indptr = np.asarray(indptr, dtype=np.int64)
     deg = np.diff(indptr)
     order = native.ell_sort_by_degree(indptr)
     dsort = deg[order]
-    idx_bins, w_bins, widths = [], [], []
-    lo = 0
+    idx_bins, w_bins, spans = [], [], []
+    lo = arc = 0
     for W in _ell_widths(int(dsort[-1]) if n_out else 1):
         if lo >= n_out:
             break
@@ -79,25 +126,41 @@ def build_ell_plan(
         if hi <= lo:
             continue
         ib, wb = native.ell_fill_bin(indptr, src, w, order[lo:hi], W)
-        idx_bins.append(torch.from_numpy(ib).to(dev))
-        w_bins.append(torch.from_numpy(wb).to(dev))
-        widths.append(W)
+        idx_bins.append(ib.reshape(-1))
+        w_bins.append(wb.reshape(-1))
+        spans.append((lo, hi - lo, W, arc))
+        arc += ib.size
         lo = hi
+    idx_flat = torch.from_numpy(np.concatenate(idx_bins or [np.zeros(0, np.int32)])).to(dev)
+    w_flat = torch.from_numpy(np.concatenate(w_bins or [np.zeros(0, np.float32)])).to(dev)
+    del idx_bins, w_bins
+    bins, (n_work, n_segments, n_split_rows) = _ell_bins(spans, ELL_SPLIT_ARCS)
+    if max(n_out, n_work) >= 2**31:
+        raise ValueError(f"the kernel holds rows and work items in int32: {n_out}, {n_work}")
     inv = np.empty(n_out, np.int32)
     inv[order] = np.arange(n_out, dtype=np.int32)
     return EllPlan(
-        idx=tuple(idx_bins),
-        w=tuple(w_bins),
+        idx=tuple(idx_flat[a : a + rows * W].view(rows, W) for _, rows, W, a in spans),
+        w=tuple(w_flat[a : a + rows * W].view(rows, W) for _, rows, W, a in spans),
         inv_order=torch.from_numpy(inv).to(dev),
         n_out=int(n_out),
-        widths=tuple(widths),
+        widths=tuple(W for _, _, W, _ in spans),
+        idx_flat=idx_flat,
+        w_flat=w_flat,
+        order=torch.from_numpy(order.astype(np.int32)).to(dev),
+        bins=torch.from_numpy(bins).to(dev),
+        n_work=int(n_work),
+        n_segments=int(n_segments),
+        n_split_rows=int(n_split_rows),
+        split_arcs=ELL_SPLIT_ARCS,
     )
 
 
 def ell_apply(
     table: torch.Tensor, plan: EllPlan, gather_dtype: torch.dtype | None = None
 ) -> torch.Tensor:
-    """[n_out, D] float32 = Â · table via per-bin gather + width-sum.
+    """[n_out, D] float32 = Â · table via per-bin gather + width-sum: the
+    plain version of :func:`gather_ell`.
 
     ``gather_dtype=torch.bfloat16`` casts the table once before the gathers
     (one rounding per message); weights and sums stay f32 either way."""
@@ -114,6 +177,40 @@ def ell_apply(
     if not outs:
         return torch.zeros(plan.n_out, d, dtype=torch.float32, device=table.device)
     return torch.cat(outs).index_select(0, plan.inv_order)
+
+
+def ell_table(table: torch.Tensor, gather_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The table :func:`gather_ell`'s kernel reads, with the values
+    :func:`ell_apply` gathers: for ``gather_dtype=torch.bfloat16`` a
+    non-bf16 table's :func:`bf16_rows`; else the f32 or bf16 table itself
+    when its rows are 16-byte rows the kernel takes
+    (``ELL_GATHER.takes_rows``), or a copy into such rows (an f32 table of
+    90 columns gets rows of 92). Another dtype is read as f32."""
+    if gather_dtype == torch.bfloat16 and table.dtype != torch.bfloat16:
+        return bf16_rows(table)
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        table = table.float()
+    if ELL_GATHER.takes_rows(table):
+        return table
+    n, d = table.shape
+    per = 16 // table.element_size()
+    rows = torch.zeros(n, -(-d // per) * per, dtype=table.dtype, device=table.device)
+    rows[:, :d] = table
+    return rows[:, :d]
+
+
+def gather_ell(
+    table: torch.Tensor, plan: EllPlan, gather_dtype: torch.dtype | None = None
+) -> torch.Tensor:
+    """[n_out, D] float32 = Â · table over the ELL plan: :func:`ell_apply`'s
+    values up to the order of each row's sum (arc order).
+
+    A CUDA table launches ``csrc/ell_gather.cu`` on :func:`ell_table`'s
+    layout (one row pass, and a combine pass when the plan splits rows);
+    only a CPU table takes the plain version, :func:`ell_apply`."""
+    if table.device.type == "cpu":
+        return ell_apply(table, plan, gather_dtype)
+    return ELL_GATHER(ell_table(table, gather_dtype), plan)
 
 
 # ---------------------------------------------------------------------------
