@@ -302,7 +302,7 @@ from gnn_ecommerce_tpu_torch.data.artifacts import load_prepared
 from gnn_ecommerce_tpu_torch.data.events import EVENT_TYPE_WEIGHTS_V1, events_to_edges, read_csv
 from gnn_ecommerce_tpu_torch.data.prepare import CsrList, EvalSplit, PreparedData, SamplerArrays, prepare_splits
 from gnn_ecommerce_tpu_torch.data.synthetic import synthetic_events
-from gnn_ecommerce_tpu_torch.device import mm_f32, resolve_device
+from gnn_ecommerce_tpu_torch.device import aligned_len, mm_f32, resolve_device
 from gnn_ecommerce_tpu_torch.eval.baselines import popularity_recall_at_k
 from gnn_ecommerce_tpu_torch.eval.metrics import recall_precision_at_k
 from gnn_ecommerce_tpu_torch.eval.evaluate import (
@@ -343,7 +343,6 @@ from gnn_ecommerce_tpu_torch.ops.spmm_fast import (
     SHORT_ROW_ARCS,
     _bucketed_plan,
     _segreduce_plan,
-    bf16_row_width,
     bf16_rows,
     bf16_rows_plain,
     build_bucketed_segreduce_plan,
@@ -972,7 +971,7 @@ def check_cast(table: torch.Tensor) -> dict:
     columns included), then times; library_ms is the contiguous cast
     ``table.to(torch.bfloat16)`` it takes the place of."""
     n, d = table.shape
-    width = bf16_row_width(d)
+    width = aligned_len(d, torch.bfloat16)
     full = lambda t: t.as_strided((n, width), (width, 1))  # the view's buffer, pad included
     assert torch.equal(full(SEGREDUCE.cast_bf16(table, width)), full(bf16_rows_plain(table)))
     kernel_ms = time_ms(lambda: SEGREDUCE.cast_bf16(table, width))
@@ -1074,7 +1073,7 @@ def check_kernel_cases(dev: torch.device, seed: int) -> None:
         assert stats["packed_chunks"] >= 2, stats
         for d in K1_CASE_DIMS:
             x = torch.randn(n_src, d, generator=gen, device=dev)
-            width = bf16_row_width(d)
+            width = aligned_len(d, torch.bfloat16)
             # The cast, and from x[1:] (not 16-byte aligned for most d) the
             # cast of the wrapper's aligned copy; pad columns included.
             for y in (x, x[1:]):
@@ -3358,10 +3357,10 @@ def main(argv=None) -> int:
         torch.testing.assert_close(emb, ref, rtol=1e-4, atol=1e-5 * scale)
         del ref
         fwd_ms = time_ms(
-            lambda: fast_get_embedding(params, fb, LAYERS, alpha=cfg.alphas()), reps=5, warmup=1
+            lambda: fast_get_embedding(params, fb, LAYERS, alpha=cfg.alphas(dev)), reps=5, warmup=1
         )
         device_profile(
-            "f32 forward", lambda: fast_get_embedding(params, fb, LAYERS, alpha=cfg.alphas())
+            "f32 forward", lambda: fast_get_embedding(params, fb, LAYERS, alpha=cfg.alphas(dev))
         )
         phase(
             4, "forward", t0,
@@ -3375,15 +3374,15 @@ def main(argv=None) -> int:
             graph_host, dtype=torch.bfloat16, fast_ops=True, msgs_dtype="bfloat16",
             heavy_users=HEAVY_USERS, heavy_dtype="bfloat16", device=dev,
         )
-        emb16 = fast_get_embedding(params, fb16, LAYERS, alpha=cfg.alphas())
+        emb16 = fast_get_embedding(params, fb16, LAYERS, alpha=cfg.alphas(dev))
         assert torch.isfinite(emb16).all()
         rel16 = ((emb16.float() - emb).norm() / emb.norm()).item()
         assert rel16 <= BF16_FORWARD_REL, rel16
         fwd16_ms = time_ms(
-            lambda: fast_get_embedding(params, fb16, LAYERS, alpha=cfg.alphas()), reps=5, warmup=1
+            lambda: fast_get_embedding(params, fb16, LAYERS, alpha=cfg.alphas(dev)), reps=5, warmup=1
         )
         device_profile(
-            "bf16 forward", lambda: fast_get_embedding(params, fb16, LAYERS, alpha=cfg.alphas())
+            "bf16 forward", lambda: fast_get_embedding(params, fb16, LAYERS, alpha=cfg.alphas(dev))
         )
         phase(
             5, "bf16", t0,

@@ -1,4 +1,5 @@
-"""Device choice and the matmul precision rules shared by the port.
+"""Device choice, the matmul precision rules and the 16-byte row rule shared
+by the port.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; without a
 card they raise instead of quietly running on the host.
@@ -14,6 +15,10 @@ The bf16 product carries its own gradient (``_MmBf16``): ``torch.mm`` with
 ``out_dtype`` has no derivative, and its backward is chosen to match JAX's
 gradient of ``dot(a_bf16, b_bf16, preferred_element_type=f32)``, which
 rounds each operand's cotangent to bf16.
+
+Rows that a kernel loads 16 bytes at a time, or that cuBLAS's aligned bf16
+GEMMs take, start 16 bytes apart: ``aligned_len`` is that row length and
+``aligned_zeros`` storage of such rows.
 """
 from __future__ import annotations
 
@@ -40,6 +45,18 @@ def divisor(value: float, device: torch.device) -> torch.Tensor:
     tensor divisor divides. It is filled on the device, so making it does
     not wait for the stream (a copy from the host would)."""
     return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def aligned_len(n: int, dtype: torch.dtype) -> int:
+    """``n`` elements of ``dtype`` rounded up to a multiple of 16 bytes (96
+    for 90 in bf16, 92 for 90 in f32)."""
+    per = 16 // dtype.itemsize
+    return -(-n // per) * per
+
+
+def aligned_zeros(rows: int, cols: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A zeroed [rows, cols] view of [rows, ``aligned_len(cols)``] storage."""
+    return torch.zeros(rows, aligned_len(cols, dtype), dtype=dtype, device=device)[:, :cols]
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,9 @@ from ..graph.build import BipartiteGraph
 from ..ops.propagate import propagate_segment
 
 
-def uniform_alphas(num_layers: int, device: str | torch.device = "cpu") -> torch.Tensor:
+def uniform_alphas(num_layers: int, device: str | torch.device) -> torch.Tensor:
     """The default layer weights, 1/(num_layers+1) each, as an f32 vector
-    made on ``device``."""
+    filled on ``device`` (a copy from the host would wait for the stream)."""
     return torch.full((num_layers + 1,), 1.0 / (num_layers + 1), dtype=torch.float32, device=device)
 
 
@@ -33,6 +33,8 @@ class LightGCNConfig:
     alpha: Optional[Sequence[float]] = None
 
     def alphas(self, device: str | torch.device = "cpu") -> torch.Tensor:
+        """The layer weights as an f32 vector on ``device``: make them once,
+        on the table's device, for a step, refresh or embedding path."""
         if self.alpha is None:
             return uniform_alphas(self.num_layers, device)
         a = torch.as_tensor(self.alpha, dtype=torch.float32, device=device)

@@ -18,8 +18,8 @@ Over the normalized bipartite adjacency Â:
   ``InfoNCE_τ(a, b) = −mean_i log softmax_j(â_i·b̂_j / τ)[i]`` with â, b̂
   the rows scaled to unit length.
 
-The clean term is the LightGCN step's own (``ops.bipartite.
-fast_batch_embeddings``, ``bpr_loss``, ``reg_loss``: the L2 on the batch's
+The clean term is the LightGCN step's own (``train.step.make_loss_fn`` over
+``ops.bipartite.fast_batch_embeddings``: BPR and the L2 on the batch's
 layer-0 rows, where SELFRec puts its norm on the propagated batch rows).
 The views cannot take B_ii's fold, since the noise depends on each layer's
 values: each layer is ``fast_to_users`` and ``fast_to_items`` of the
@@ -50,7 +50,6 @@ import torch.nn.functional as F
 from ..ops.bipartite import FastBipartite, fast_batch_embeddings, fast_to_items, fast_to_users
 from ..tracing import count, span
 from .lightgcn import LightGCNConfig
-from .losses import bpr_loss, reg_loss
 
 
 def simgcl_alphas(num_layers: int) -> tuple:
@@ -135,33 +134,31 @@ def make_simgcl_loss_fn(
 ):
     """``loss_fn(params, fb, users, pos, neg) -> (loss, (bpr, reg,
     dropped))`` in ``train.step.make_loss_fn``'s form, for
-    ``make_train_fns(loss_fn=...)``: the clean LightGCN term (``cfg``'s layer
-    weights, :func:`simgcl_alphas` for SimGCL) plus ``cl_weight`` times both
-    InfoNCE terms between two perturbed views, whose noise ``generator``
-    draws. ``loss - bpr - reg`` is the contrastive term."""
+    ``make_train_fns(loss_fn=...)``: ``make_loss_fn``'s clean LightGCN term
+    over ``fast_batch_embeddings`` (``cfg``'s layer weights, made once on
+    ``generator``'s device, the table's; :func:`simgcl_alphas` for SimGCL)
+    plus ``cl_weight`` times both InfoNCE terms between two perturbed views,
+    whose noise ``generator`` draws. ``loss - bpr - reg`` is the contrastive
+    term."""
+    from ..train.step import make_loss_fn  # the train package imports this module
+
     L = cfg.num_layers
-    alphas = {}
+    alpha = cfg.alphas(generator.device)
+    batch_embed = lambda p, fb_, u, po, ne: fast_batch_embeddings(
+        p, fb_, L, u, po, ne, edge_cap=edge_cap, alpha=alpha
+    )
+    clean_fn = make_loss_fn(cfg, decay, batch_embed_fn=batch_embed)
 
     def loss_fn(params, fb, users, pos, neg):
-        table = params["embedding"]
-        dev = table.device
-        if dev not in alphas:
-            alphas[dev] = cfg.alphas(dev)
-        with span("train.forward"):
-            u, p, n, dropped = fast_batch_embeddings(
-                params, fb, L, users, pos, neg, edge_cap=edge_cap, alpha=alphas[dev]
-            )
-        with span("train.loss"):
-            bpr = bpr_loss((u * p).sum(-1), (u * n).sum(-1))
-            reg = reg_loss(table, users, pos, neg, decay)
+        loss, aux = clean_fn(params, fb, users, pos, neg)
         with span("train.cl"):
             su, first_u = first_of_runs(users)
             sp, first_p = first_of_runs(pos)
             sp = sp - fb.n_users
-            views = [perturbed_view(table, fb, L, eps, generator, su, sp) for _ in range(2)]
+            views = [perturbed_view(params["embedding"], fb, L, eps, generator, su, sp) for _ in range(2)]
             with span("train.cl.infonce"):
                 cl = info_nce_unique(views[0][0], views[1][0], first_u, temp)
                 cl = cl + info_nce_unique(views[0][1], views[1][1], first_p, temp)
-        return bpr + reg + cl_weight * cl, (bpr, reg, dropped)
+        return loss + cl_weight * cl, aux
 
     return loss_fn

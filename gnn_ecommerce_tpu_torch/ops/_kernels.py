@@ -18,6 +18,7 @@ import threading
 import torch
 
 from .._sharedlib import build_shared_library
+from ..device import aligned_len
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 
@@ -242,7 +243,7 @@ class EllGatherKernel(_Kernel):
         stride = table.stride(0)
         if (d > 1 and table.stride(1) != 1) or stride < d or stride % per or table.data_ptr() % 16:
             return False
-        end = table.storage_offset() + (n_rows - 1) * stride + -(-d // per) * per
+        end = table.storage_offset() + (n_rows - 1) * stride + aligned_len(d, table.dtype)
         return n_rows == 0 or end * table.element_size() <= table.untyped_storage().nbytes()
 
     def __call__(self, table: torch.Tensor, plan) -> torch.Tensor:
@@ -562,7 +563,8 @@ class LaneGatherKernel(_Kernel):
 
     One call launches each of two passes once (``PASSES``: a key of each
     pass's kernel symbol -> the pass): the transpose of the table into the
-    [ni, dp] scratch this wrapper allocates (dp: :meth:`padded_rows`), and
+    [ni, dp] scratch this wrapper allocates (dp: d rounded up to 16 bytes,
+    ``device.aligned_len``, so that each item's column is one aligned row), and
     the gather over windows of WINDOW indices and bands of at most
     BAND_ROWS table rows."""
 
@@ -576,12 +578,6 @@ class LaneGatherKernel(_Kernel):
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.lane_gather_bf16.argtypes = [ptr, i64, ctypes.c_int, ptr, i64, ptr, ptr, ptr]
         lib.lane_gather_bf16.restype = ctypes.c_int
-
-    @staticmethod
-    def padded_rows(d: int) -> int:
-        """dp: the transposed table's row length, d rounded up to 8 (each
-        item's column one 16-byte aligned row)."""
-        return -(-d // 8) * 8
 
     def __call__(self, tab, idx, layout: str) -> torch.Tensor:
         if layout not in self.MODES:
@@ -600,7 +596,7 @@ class LaneGatherKernel(_Kernel):
         if n == 0:
             return out
         lib = self._lib or self.load()
-        tab_t = torch.empty(ni, self.padded_rows(d), dtype=torch.bfloat16, device=tab.device)
+        tab_t = torch.empty(ni, aligned_len(d, torch.bfloat16), dtype=torch.bfloat16, device=tab.device)
         with _on_device(tab.device):
             rc = lib.lane_gather_bf16(
                 tab.data_ptr(), ni, d, idx.data_ptr(), n, tab_t.data_ptr(), out.data_ptr(),

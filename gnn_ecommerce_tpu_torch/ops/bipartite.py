@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import native
-from ..device import mm_f32, resolve_device
+from ..device import aligned_len, aligned_zeros, mm_f32, resolve_device
 from ..graph.build import BipartiteGraph
 from ..models.lightgcn import uniform_alphas
 from ..tracing import count, span
@@ -467,19 +467,22 @@ def build_item_operator(
 
 def padded_cols(n: int, dtype: torch.dtype) -> int:
     """Row length, in elements, of the storage of an ``n``-column chain
-    operand: ``n`` rounded up to 16 bytes in bf16, ``n`` itself in f32.
+    operand: ``n`` rounded up to 16 bytes in bf16 (``device.aligned_len``),
+    ``n`` itself in f32.
 
     cuBLAS's Hopper bf16 GEMMs need 16-byte row strides and a 16-byte
     reduction length where it is the contiguous dimension; short of that a
     bf16 product falls back to an sm75 kernel that loads one element at a
     time, at a fifth of the speed on B_ii. The f32 products run CUDA-core
     kernels that load 16 bytes at any stride, and pad no faster."""
-    return -(-n // 8) * 8 if dtype == torch.bfloat16 else n
+    return aligned_len(n, dtype) if dtype == torch.bfloat16 else n
 
 
 def row_padded(rows: int, cols: int, dtype: torch.dtype, device) -> torch.Tensor:
     """A zeroed [rows, cols] view of [rows, ``padded_cols(cols)``] storage."""
-    return torch.zeros(rows, padded_cols(cols, dtype), dtype=dtype, device=device)[:, :cols]
+    if dtype == torch.bfloat16:
+        return aligned_zeros(rows, cols, dtype, device)
+    return torch.zeros(rows, cols, dtype=dtype, device=device)
 
 
 def _over_padding(op: torch.Tensor) -> torch.Tensor:
@@ -657,9 +660,11 @@ def _rhs(parts: list, dtype: torch.dtype) -> torch.Tensor:
 
 def _item_chain(params: dict, fb: FastBipartite, num_layers: int, alpha):
     """(E_u, out_i, S_i, alpha) of :func:`item_chain_core` over the unified
-    table; ``alpha=None`` is uniform 1/(L+1)."""
+    table; ``alpha`` on the table's device, or None for ``uniform_alphas``
+    filled there."""
     E = params["embedding"]
-    alpha = (uniform_alphas(num_layers) if alpha is None else alpha).to(E.device)
+    if alpha is None:
+        alpha = uniform_alphas(num_layers, E.device)
     E_u, E_i = E[: fb.n_users], E[fb.n_users :]
     out_i, S_i = item_chain_core(E_u, E_i, fb.to_items, fb.item_op, num_layers, alpha)
     return E_u, out_i, S_i, alpha

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve_device
+from ..device import aligned_len, aligned_zeros, resolve_device
 from ._kernels import ELL_GATHER, SEGREDUCE
 
 # ---------------------------------------------------------------------------
@@ -192,11 +192,7 @@ def ell_table(table: torch.Tensor, gather_dtype: torch.dtype | None = None) -> t
         table = table.float()
     if ELL_GATHER.takes_rows(table):
         return table
-    n, d = table.shape
-    per = 16 // table.element_size()
-    rows = torch.zeros(n, -(-d // per) * per, dtype=table.dtype, device=table.device)
-    rows[:, :d] = table
-    return rows[:, :d]
+    return aligned_zeros(*table.shape, table.dtype, table.device).copy_(table)
 
 
 def gather_ell(
@@ -379,18 +375,10 @@ def segreduce_plain(
     return out if prev is None else prev + out
 
 
-def bf16_row_width(d: int) -> int:
-    """Columns of a bf16 row padded to a multiple of 16 bytes (96 for 90)."""
-    return -(-d // 8) * 8
-
-
 def bf16_rows_plain(table: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the padded cast: the [n, D] bf16 view of a
-    zeroed [n, bf16_row_width(D)] buffer holding ``table.to(bfloat16)``."""
-    n, d = table.shape
-    buf = torch.zeros(n, bf16_row_width(d), dtype=torch.bfloat16, device=table.device)
-    buf[:, :d] = table
-    return buf[:, :d]
+    """Plain torch version of the padded cast: ``table.to(bfloat16)`` in a
+    zeroed [n, D] view of 16-byte rows (``device.aligned_zeros``)."""
+    return aligned_zeros(*table.shape, torch.bfloat16, table.device).copy_(table)
 
 
 def bf16_rows(table: torch.Tensor) -> torch.Tensor:
@@ -401,7 +389,7 @@ def bf16_rows(table: torch.Tensor) -> torch.Tensor:
     layout is taken."""
     if table.device.type == "cpu":
         return bf16_rows_plain(table)
-    return SEGREDUCE.cast_bf16(table, bf16_row_width(table.shape[1]))
+    return SEGREDUCE.cast_bf16(table, aligned_len(table.shape[1], torch.bfloat16))
 
 
 def segreduce_table(table: torch.Tensor, msgs_dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -31,7 +31,6 @@ import torch
 
 from ..device import divisor
 from ..graph.build import BipartiteGraph
-from ..models.lightgcn import uniform_alphas
 from ..models.losses import bpr_loss
 from ..train.step import make_train_fns
 from .distributed import all_gather_rows, exchange_rows, sum_partials
@@ -186,12 +185,12 @@ def make_explicit_fns(cfg, optimizer, mesh: Mesh, part: EdgePartition, batch_siz
 
     def embed(params: dict, part_: EdgePartition) -> torch.Tensor:
         emb = params["embedding"]
-        out = _embed_local(emb, part_, uniform_alphas(L, emb.device), L)
+        out = _embed_local(emb, part_, cfg.alphas(emb.device), L)
         return all_gather_rows(out, part_.mesh, AXIS)
 
     def loss_fn(params: dict, part_: EdgePartition, users, pos, neg):
         emb = params["embedding"]
-        out = _embed_local(emb, part_, uniform_alphas(L, emb.device), L)
+        out = _embed_local(emb, part_, cfg.alphas(emb.device), L)
         u, p, n = (_lookup(out, ids, part_) for ids in (users, pos, neg))
         bpr = bpr_loss((u * p).sum(-1), (u * n).sum(-1))
         # Ego-embedding L2 on the batch rows, looked up the same way.

@@ -44,7 +44,6 @@ import numpy as np
 import torch
 
 from ..device import divisor, mm_f32
-from ..models.lightgcn import uniform_alphas
 from ..models.losses import bpr_loss
 from ..ops.bipartite import (
     _DTYPES, BipartiteSplit, batch_messages, heavy_tail, item_chain_core, item_op_mm,
@@ -377,7 +376,7 @@ def make_fast_edge_fns(cfg, optimizer, mesh: Mesh, fep: FastEdgePartition, batch
     def chain(params: dict, fep_: FastEdgePartition):
         """(alpha, out_i, S_i) of the item chain over the shards."""
         E_u = params["emb_users"]
-        alpha = uniform_alphas(L, E_u.device)
+        alpha = cfg.alphas(E_u.device)
         return alpha, *item_chain_core(
             E_u, params["emb_items"], lambda x: ep_to_items(x, fep_), fep_.item_op, L, alpha
         )

@@ -207,9 +207,8 @@ class RecommenderService:
         ``serve.refresh.cache``, in a registration too."""
         with torch.inference_mode():
             with span("serve.refresh.propagate"):
-                emb = fast_get_embedding(
-                    params, self.fast_bipartite, cfg.num_layers, alpha=cfg.alphas()
-                )
+                emb = fast_get_embedding(params, self.fast_bipartite, cfg.num_layers,
+                                         alpha=cfg.alphas(params["embedding"].device))
             with span("serve.refresh.cache"):
                 qcache = QuantizedCache(emb, self.prepared.n_users) if self.quantized else None
                 if emb.is_cuda:

@@ -65,7 +65,7 @@ from ..sampling.bpr import make_sampler_data
 from .checkpoint import (
     BEST_NAME, LAST_NAME, load_checkpoint, restore_into, save_checkpoint,
 )
-from .step import Adam, AdamState, make_run_steps, make_train_fns
+from .step import Adam, AdamState, make_loss_fn, make_run_steps, make_train_fns
 
 # Seconds to wait before the one retry of an operator build that ran out of
 # device memory.
@@ -482,24 +482,21 @@ def _train_impl(
             "plans_s": fb.build_seconds["plans"],
         })
         graph = None  # superseded by fb
+        alpha = cfg.alphas(dev)
         if simgcl:
             noise_gen = torch.Generator(device=dev)
-            _, run_steps = make_train_fns(
-                cfg, optimizer, config.batch_size, config.decay,
-                sample_replace=config.sample_replace,
-                loss_fn=make_simgcl_loss_fn(cfg, config.decay, config.cl_weight, config.cl_eps,
-                                            config.cl_temp, edge_cap, noise_gen),
-            )
-            compute_embedding = lambda p: fast_get_embedding(p, fb, cfg.num_layers, alpha=cfg.alphas(dev))
+            loss_fn = make_simgcl_loss_fn(cfg, config.decay, config.cl_weight, config.cl_eps,
+                                          config.cl_temp, edge_cap, noise_gen)
         else:
-            _, run_steps = make_train_fns(
-                cfg, optimizer, config.batch_size, config.decay,
-                sample_replace=config.sample_replace,
-                batch_embed_fn=lambda p, fb_, u, po, ne: fast_batch_embeddings(
-                    p, fb_, cfg.num_layers, u, po, ne, edge_cap=edge_cap
-                ),
+            batch_embed = lambda p, fb_, u, po, ne: fast_batch_embeddings(
+                p, fb_, cfg.num_layers, u, po, ne, edge_cap=edge_cap, alpha=alpha
             )
-            compute_embedding = lambda p: fast_get_embedding(p, fb, cfg.num_layers)
+            loss_fn = make_loss_fn(cfg, config.decay, batch_embed_fn=batch_embed)
+        _, run_steps = make_train_fns(
+            cfg, optimizer, config.batch_size, config.decay,
+            sample_replace=config.sample_replace, loss_fn=loss_fn,
+        )
+        compute_embedding = lambda p: fast_get_embedding(p, fb, cfg.num_layers, alpha=alpha)
         step_graph = fb
     else:
         _, run_steps = make_train_fns(

@@ -197,7 +197,7 @@ def test_item_operator_is_a_view_of_row_padded_storage(odd, dtype):
 def _chain(B, layers, dim, seed=0, grad=False):
     g = torch.Generator().manual_seed(seed)
     E_u, E_i = (torch.randn(B.shape[0], dim, generator=g).requires_grad_(grad) for _ in range(2))
-    alpha = uniform_alphas(layers)
+    alpha = uniform_alphas(layers, B.device)
     out_i, S_i = tbip.item_chain_core(E_u, E_i, lambda x: x, B, layers, alpha)
     assert out_i.shape == S_i.shape == (B.shape[0], dim)
     if not grad:

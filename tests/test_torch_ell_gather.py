@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from gnn_ecommerce_tpu_torch import native, tracing
+from gnn_ecommerce_tpu_torch.device import aligned_len
 from gnn_ecommerce_tpu_torch.graph.build import build_graph
 from gnn_ecommerce_tpu_torch.ops import bipartite as tbip
 from gnn_ecommerce_tpu_torch.ops import spmm_fast as tfast
@@ -218,6 +219,8 @@ def test_ell_table_layouts(d, gather, layout):
     assert got.dtype == want.dtype and torch.equal(got, want)
     kept = layout == "padded" or (layout == "contiguous" and d % 4 == 0)
     assert (got.data_ptr() == table.data_ptr()) == (gather == "float32" and kept)
+    if not kept or gather != "float32":  # a copy: rows of device.aligned_len
+        assert got.stride(0) == aligned_len(d, got.dtype)
 
 
 def test_ell_kernel_refuses_host_tensors():

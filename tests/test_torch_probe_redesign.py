@@ -17,6 +17,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from gnn_ecommerce_tpu_torch.device import aligned_len
 from gnn_ecommerce_tpu_torch.ops._kernels import LANE_GATHER, ROW_GATHER, TILE_SEGREDUCE
 from gnn_ecommerce_tpu_torch.probes import kernels as pk
 from gnn_ecommerce_tpu_torch.probes.proto_segreduce import build_plan
@@ -376,7 +377,7 @@ class _Buffers:
 def lane_bands(d: int) -> list:
     """(first row, rows) of each band of the padded table: BAND_ROWS rows
     each but the last, one grid row of the gather pass each."""
-    dp = LANE_GATHER.padded_rows(d)
+    dp = aligned_len(d, torch.bfloat16)
     return [(r0, min(LANE_GATHER.BAND_ROWS, dp - r0)) for r0 in range(0, dp, LANE_GATHER.BAND_ROWS)]
 
 
@@ -391,7 +392,7 @@ def lane_gather_emulate(tab, idx, blocks: int):
     group, per band's pieces a row P)."""
     d, ni = tab.shape
     n = len(idx)
-    dp = LANE_GATHER.padded_rows(d)
+    dp = aligned_len(d, torch.bfloat16)
     tab_t = np.zeros((ni, dp), np.uint16)
     tab_t[:, :d] = tab.T
     out = np.zeros((d, n), np.uint16)
@@ -550,8 +551,8 @@ def test_lane_gather_shared_memory_fits_at_every_d():
     def shared(d):
         return 2 * J * 4 + 2 * J * lane_bands(d)[0][1] * 2
 
-    assert LANE_GATHER.padded_rows(80) == 80 and lane_bands(80) == [(0, 80)]
-    assert LANE_GATHER.padded_rows(7) == 8 and lane_bands(200) == [(0, 128), (128, 72)]
+    assert aligned_len(80, torch.bfloat16) == 80 and lane_bands(80) == [(0, 80)]
+    assert aligned_len(7, torch.bfloat16) == 8 and lane_bands(200) == [(0, 128), (128, 72)]
     per_sm, reserved = 233_472, 1024  # an SM's shared memory, a block's reserve
     assert shared(80) == 83_968 and 2 * (shared(80) + reserved) <= per_sm < 3 * (shared(80) + reserved)
     assert max(shared(d) for d in (1, 128, 129, 65_535)) == shared(128) <= 232_448

@@ -12,6 +12,7 @@ import torch
 
 from gnn_ecommerce_tpu.ops import bipartite as jbip
 from gnn_ecommerce_tpu.ops import spmm_fast as jfast
+from gnn_ecommerce_tpu_torch.device import aligned_len
 from gnn_ecommerce_tpu_torch.ops import bipartite as tbip
 from gnn_ecommerce_tpu_torch.ops import spmm_fast as tfast
 from gnn_ecommerce_tpu_torch.ops._kernels import SEGREDUCE
@@ -306,12 +307,14 @@ def test_segreduce_kernel_order_matches_plain(ch, d, layout, short_runs):
 
 @pytest.mark.parametrize("d", [1, 8, 90, 256])
 def test_bf16_rows_pads_to_16_byte_rows(d):
-    """The padded cast's [n, D] view: a row stride of a multiple of 16 bytes,
-    the values of ``table.to(bfloat16)``, zero pad columns; the kernel
-    loads it 16 bytes a lane."""
+    """The padded cast's [n, D] view: a row stride of a multiple of 16 bytes
+    (``device.aligned_len``, the chain's ``padded_cols`` in bf16), the
+    values of ``table.to(bfloat16)``, zero pad columns; the kernel loads it
+    16 bytes a lane."""
     x = torch.from_numpy(normal(9, (37, d)))
     got = tfast.bf16_rows(x)
-    width = tfast.bf16_row_width(d)
+    width = aligned_len(d, torch.bfloat16)
+    assert width == tbip.padded_cols(d, torch.bfloat16)
     assert got.shape == (37, d) and got.stride() == (width, 1) and width * 2 % 16 == 0
     assert width - d < 8
     assert torch.equal(got, x.to(torch.bfloat16))

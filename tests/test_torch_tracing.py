@@ -4,7 +4,9 @@ each span's parent on its own thread's stack, its self time and the
 counters; under a torch profiler each span (and each mark, which is never
 recorded) is a host ``cpu_op`` event, not a user annotation; and the spans of the training step, the service's refresh
 and the fast-bipartite build appear where those paths run. Also the
-batcher's queue-wait and dispatch counters."""
+batcher's queue-wait and dispatch counters. On a card (skipped without one;
+``python -m pytest tests/test_torch_tracing.py --noconftest -q -k copies``
+there): a LightGCN step neither copies from the host nor waits for the card."""
 import contextlib
 import re
 import threading
@@ -162,6 +164,60 @@ def test_run_steps_spans_once_a_step():
     kids = sum(spans[k]["host_ms"] for k in STEP_SPANS[1:])
     assert kids <= spans["train.step"]["host_ms"]
     assert spans["train.step"]["self_host_ms"] == pytest.approx(spans["train.step"]["host_ms"] - kids)
+
+
+def _copies_and_waits_in_steps(dev: torch.device) -> dict:
+    """The bf16 main path's LightGCN step (``fast_batch_embeddings`` with the
+    default layer weights) on ``_tiny``'s case: 3 steps, then ``run_steps``
+    of 4 under the profiler. Counts the ``train.step`` spans, the device's
+    events, and inside a ``train.step`` the device's host-to-device copies
+    and the runtime calls that wait for the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    u, i, w, n_u, n_i, sampler = _tiny()
+    graph = build_graph(u, i, w, n_u, n_i, device="cpu")
+    fb = bip.build_fast_bipartite(graph, dtype=torch.bfloat16, fast_ops=True, msgs_dtype="bfloat16",
+                                  heavy_users=50, heavy_dtype="bfloat16", device=dev)
+    sdata = make_sampler_data(sampler, n_u, n_i, dev)
+    table = torch.randn(n_u + n_i, DIM, generator=torch.Generator().manual_seed(0)) * 0.1
+    params = {"embedding": table.to(dev)}
+    opt = Adam(0.005)
+    state = opt.init(params)
+    train_step, run_steps = make_train_fns(
+        LightGCNConfig(n_u + n_i, DIM, LAYERS), opt, BATCH, 1e-4,
+        batch_embed_fn=lambda p, f, us, po, ne: bip.fast_batch_embeddings(p, f, LAYERS, us, po, ne, edge_cap=4096),
+    )
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(3):
+        params, state, _ = train_step(params, state, fb, sdata, gen)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_steps(params, state, fb, sdata, gen, 4)
+    events = list(prof.profiler.kineto_results.events())
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events if e.name() == "train.step"]
+    inside = lambda e: any(lo <= e.start_ns() <= hi for lo, hi in spans)
+    on_card = [e for e in events if e.device_type() == DeviceType.CUDA]
+    on_host = [e for e in events if e.device_type() != DeviceType.CUDA]
+    return {
+        "steps": len(spans),
+        "device_events": len(on_card),
+        "copies_htod": sum(e.name().startswith("Memcpy HtoD") and inside(e) for e in on_card),
+        "syncs": sum("Synchronize" in e.name() and inside(e) for e in on_host),
+    }
+
+
+def test_train_step_neither_copies_from_the_host_nor_waits():
+    """On a card (skipped without one): inside ``train.step`` nothing is
+    copied from the host and the host never waits for the stream, so the
+    host can run ahead of the card; ``run_steps``' one read of its metrics
+    (``train.sync``) lies outside the steps. The layer weights are filled on
+    the card, not copied there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: host-to-device copies and stream waits are the card's")
+    got = _copies_and_waits_in_steps(torch.device("cuda", 0))
+    assert got["steps"] == 4 and got["device_events"] > 0, got
+    assert got["copies_htod"] == 0 and got["syncs"] == 0, got
 
 
 @pytest.mark.parametrize("recording", [True, False])
