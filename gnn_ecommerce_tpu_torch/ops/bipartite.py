@@ -8,12 +8,16 @@ alternates sides of the bipartite graph, so every item layer l ≥ 2 is
     out_u = α_0 E_u + Â_ui · S_i,     S_i = Σ_{l=1..L} α_l i^{l-1}
     out_i = Σ_l α_l i^l,              i^1 = Â_iu · E_u
 
-A forward is then two sparse products plus dense B_ii matmuls. With plans
-(``FastOps``) they are ``fast_to_items`` through the CUDA segment reduce and
-``fast_to_users`` through the CUDA ELL gather, and an optional dense head of the
-heaviest users (``w_hi``) takes their arcs out of both plans. Without plans
-(``FastBipartite.fops`` None, ``build_fast_bipartite``'s default) they are
-the sorted segment sums :func:`to_items` / :func:`to_users`.
+A forward is then two sparse products plus the B_ii products of the chain.
+With plans (``FastOps``) the sparse products are ``fast_to_items`` through the
+CUDA segment reduce and ``fast_to_users`` through the CUDA ELL gather, and an
+optional dense head of the heaviest users (``w_hi``) takes their arcs out of
+both plans. Without plans (``FastBipartite.fops`` None,
+``build_fast_bipartite``'s default) they are the sorted segment sums
+:func:`to_items` / :func:`to_users`. A bf16 B_ii is applied as a dense GEMM on
+the tensor cores; an f32 B_ii as its two sparse factors,
+``to_items(to_users(x))`` (:func:`item_product`), since with TF32 off its
+dense GEMM runs on CUDA cores at many times the factors' cost.
 
 The backward is symmetric: ``(Â_iu)ᵀ = Â_ui`` and ``B_iiᵀ = B_ii``, so the
 gradient of ``fast_to_items`` is ``fast_to_users`` and the other way round
@@ -32,7 +36,8 @@ Spans (``tracing.py``): ``ops.item_chain``, ``ops.to_items`` and
 ``ops.batch_users``; in set-up ``setup.split``, ``setup.plans`` and
 ``setup.item_op`` with a child for each phase of :func:`build_item_operator`.
 Counters: ``ops.item_chain.unaligned``, each B_ii product whose bf16
-operands leave the layout of :func:`padded_cols`; ``ops.to_users.split_rows``,
+operands leave the layout of :func:`padded_cols`; ``ops.item_chain.factored``,
+each f32 B_ii product applied as its factors; ``ops.to_users.split_rows``,
 the ELL rows that a CUDA ``to_users`` call split into segments (hubs of more
 than ``ELL_SPLIT_ARCS`` arcs: none beside a heavy head).
 """
@@ -624,8 +629,10 @@ def item_chain_core(E_u, E_i, to_items_fn, B, num_layers: int, alpha):
 
     ``B`` is the dense [n_items, n_items] operator (:func:`item_op_mm`), or
     a callable with a ``dtype`` that returns the [n_items, n] f32 product
-    ``B @ x`` for an [n_items, n] ``x`` in that dtype (the fast edge
-    partition's row-banded B_ii, ``parallel/edge_partition_fast.py:ItemBand``).
+    ``B @ x`` for an [n_items, n] ``x`` in that dtype: the fast edge
+    partition's row-banded B_ii (``parallel/edge_partition_fast.py:ItemBand``),
+    or an f32 B_ii's sparse factors (:class:`FactoredItemOp`, which
+    :func:`item_product` picks for the one-device forwards).
     Each right-hand side gets zero columns up to ``padded_cols`` (a bf16
     pair of width 90 is 184 wide); its product's extra columns are dropped."""
     if B is None:
@@ -658,15 +665,43 @@ def _rhs(parts: list, dtype: torch.dtype) -> torch.Tensor:
     return torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
 
 
+class FactoredItemOp:
+    """B_ii applied as its two sparse factors, ``B_ii · x = Â_iu · (Â_ui ·
+    x)`` (``fb.to_items(fb.to_users(x))``): f32 rows, weights and sums, the
+    layered propagation's own order. Differentiable through the factors'
+    autograd pairs. Counts ``ops.item_chain.factored`` once a product."""
+
+    dtype = torch.float32
+
+    def __init__(self, fb: FastBipartite):
+        self.fb = fb
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        count("ops.item_chain.factored")
+        return self.fb.to_items(self.fb.to_users(x))
+
+
+def item_product(fb: FastBipartite):
+    """The ``B`` that :func:`item_chain_core` applies for ``fb``: a dense
+    f32 B_ii as its sparse factors (:class:`FactoredItemOp`), whose arcs
+    cost far less than the dense product's CUDA-core GEMM (TF32 is off); a
+    bf16 B_ii as it is, whose GEMM runs on the tensor cores at no more than
+    the factors' cost. A callable B_ii (a mesh's ``ItemBand``) is its own
+    product."""
+    if callable(fb.item_op) or fb.item_op.dtype != torch.float32:
+        return fb.item_op
+    return FactoredItemOp(fb)
+
+
 def _item_chain(params: dict, fb: FastBipartite, num_layers: int, alpha):
     """(E_u, out_i, S_i, alpha) of :func:`item_chain_core` over the unified
-    table; ``alpha`` on the table's device, or None for ``uniform_alphas``
-    filled there."""
+    table, with :func:`item_product`'s B; ``alpha`` on the table's device,
+    or None for ``uniform_alphas`` filled there."""
     E = params["embedding"]
     if alpha is None:
         alpha = uniform_alphas(num_layers, E.device)
     E_u, E_i = E[: fb.n_users], E[fb.n_users :]
-    out_i, S_i = item_chain_core(E_u, E_i, fb.to_items, fb.item_op, num_layers, alpha)
+    out_i, S_i = item_chain_core(E_u, E_i, fb.to_items, item_product(fb), num_layers, alpha)
     return E_u, out_i, S_i, alpha
 
 

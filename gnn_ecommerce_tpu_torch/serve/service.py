@@ -6,10 +6,11 @@ propagates once at load/refresh time and answers each request with a
 matmul, a mask and a top-K against the cached final embeddings.
 
 Propagation runs the fast bipartite forward (``ops/bipartite.py``) in its
-exact f32 mode: f32 B_ii, f32 messages and no heavy-user head, so every
-user→item arc goes through the CUDA segment reduce on the card. The JAX
-service runs the layered ``get_embedding``; the two are equal up to
-summation order.
+exact f32 mode: f32 messages and no heavy-user head, so every user→item arc
+goes through the CUDA segment reduce on the card. The service builds an f32
+B_ii, and the chain applies it as its two sparse factors (K1 and the ELL
+gather), the layered propagation's own order. The JAX service runs the
+layered ``get_embedding``; the two are equal up to summation order.
 
 With ``quantized=True`` each version also carries a
 :class:`~.quantized.QuantizedCache` of its f32 cache, built after each

@@ -133,10 +133,24 @@ def _tiny():
     return u, i, w, n_u, n_i, sampler
 
 
-def test_run_steps_spans_once_a_step():
+# B_ii products in a chain of LAYERS layers: one a pair of layers 2..L (ceil((L - 1) / 2)).
+PRODUCTS = LAYERS // 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_run_steps_spans_once_a_step(dtype):
+    """Each step's spans; the sparse products once a step over a bf16 B_ii,
+    and over an f32 B_ii also twice a B_ii product in the chain (its two
+    factors, each with its gradient), which ``ops.item_chain.factored``
+    counts."""
     u, i, w, n_u, n_i, sampler = _tiny()
     graph = build_graph(u, i, w, n_u, n_i, device="cpu")
-    fb = bip.build_fast_bipartite(graph, fast_ops=True, heavy_users=50, device="cpu")
+    if dtype == "float32":
+        fb = bip.build_fast_bipartite(graph, fast_ops=True, heavy_users=50, device="cpu")
+    else:
+        fb = bip.build_fast_bipartite(graph, dtype=torch.bfloat16, fast_ops=True, msgs_dtype="bfloat16",
+                                      heavy_users=50, heavy_dtype="bfloat16", device="cpu")
+    factored = PRODUCTS if dtype == "float32" else 0
     sdata = make_sampler_data(sampler, n_u, n_i, "cpu")
     params = {"embedding": torch.randn(n_u + n_i, DIM, generator=torch.Generator().manual_seed(0)) * 0.1}
     opt = Adam(0.005)
@@ -148,19 +162,24 @@ def test_run_steps_spans_once_a_step():
     gen = torch.Generator().manual_seed(1)
     with tracing.recording():
         params, state, _ = run_steps(params, state, fb, sdata, gen, STEPS)
-    spans = tracing.report()["spans"]
-    for name in STEP_SPANS + ("ops.item_chain", "ops.to_items", "ops.batch_users", "ops.to_users"):
+    rep = tracing.report()
+    spans = rep["spans"]
+    for name in STEP_SPANS + ("ops.item_chain", "ops.batch_users"):
         assert spans[name]["calls"] == STEPS, name
+    for name in ("ops.to_items", "ops.to_users"):
+        assert spans[name]["calls"] == STEPS * (1 + 2 * factored), name
+    assert rep["counters"].get("ops.item_chain.factored", 0) == STEPS * factored
     assert spans["train.sync"]["calls"] == 1
     assert "train.sample.bisect" not in spans  # a profiler's mark, not recorded
     # The forward's products under the chain; to_items' backward (the ELL)
     # under the backward; every child of a step inside it.
-    for child, parent in (("train.sample", "train.step"), ("train.forward", "train.step"),
-                          ("train.backward", "train.step"), ("train.adam", "train.step"),
-                          ("ops.item_chain", "train.forward"),
-                          ("ops.to_items", "ops.item_chain"), ("ops.batch_users", "train.forward"),
-                          ("ops.to_users", "train.backward")):
-        assert {parent_name(r) for r in records(child)} == {parent}, child
+    for child, parent in (("train.sample", {"train.step"}), ("train.forward", {"train.step"}),
+                          ("train.backward", {"train.step"}), ("train.adam", {"train.step"}),
+                          ("ops.item_chain", {"train.forward"}),
+                          ("ops.to_items", {"ops.item_chain", "train.backward"} if factored else {"ops.item_chain"}),
+                          ("ops.batch_users", {"train.forward"}),
+                          ("ops.to_users", {"ops.item_chain", "train.backward"} if factored else {"train.backward"})):
+        assert {parent_name(r) for r in records(child)} == parent, child
     kids = sum(spans[k]["host_ms"] for k in STEP_SPANS[1:])
     assert kids <= spans["train.step"]["host_ms"]
     assert spans["train.step"]["self_host_ms"] == pytest.approx(spans["train.step"]["host_ms"] - kids)
@@ -254,7 +273,8 @@ def test_simgcl_step_spans_and_counters(recording):
                           ("train.cl.noise", "train.cl.view"), ("train.cl.infonce", "train.cl")):
         assert {parent_name(r) for r in records(child)} == {parent}, child
     assert rep["counters"] == {"train.cl.noised_rows": 2 * LAYERS * (n_u + n_i),
-                               "train.cl.view_arcs": 2 * LAYERS * 2 * len(u)}
+                               "train.cl.view_arcs": 2 * LAYERS * 2 * len(u),
+                               "ops.item_chain.factored": PRODUCTS}  # the clean term's f32 B_ii
 
 
 def test_fast_bipartite_build_spans_and_verbose_phases(capsys):
@@ -296,13 +316,19 @@ def test_refresh_spans():
     with tracing.recording():
         svc.refresh(params)
         svc.refresh(params)
-    spans = tracing.report()["spans"]
+    rep = tracing.report()
+    spans = rep["spans"]
     for name in ("serve.refresh", "serve.refresh.propagate", "serve.refresh.cache", "serve.refresh.swap",
-                 "ops.item_chain", "ops.to_items", "ops.to_users"):
+                 "ops.item_chain"):
         assert spans[name]["calls"] == 2, name
+    # The service's f32 B_ii runs as its two factors: each product adds one
+    # call of each sparse direction inside the chain.
+    for name in ("ops.to_items", "ops.to_users"):
+        assert spans[name]["calls"] == 2 * (1 + PRODUCTS), name
+    assert rep["counters"]["ops.item_chain.factored"] == 2 * PRODUCTS
     for child in ("serve.refresh.propagate", "serve.refresh.cache", "serve.refresh.swap"):
         assert {parent_name(r) for r in records(child)} == {"serve.refresh"}
-    assert {parent_name(r) for r in records("ops.to_users")} == {"serve.refresh.propagate"}
+    assert {parent_name(r) for r in records("ops.to_users")} == {"serve.refresh.propagate", "ops.item_chain"}
     assert svc.last_refresh_s * 1e3 <= spans["serve.refresh"]["host_ms"]
 
 
