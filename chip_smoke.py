@@ -312,12 +312,14 @@ from gnn_ecommerce_tpu_torch.eval.evaluate import (
     evaluate_bucketed,
 )
 from gnn_ecommerce_tpu_torch.graph.build import build_graph
+from gnn_ecommerce_tpu_torch.models.dgcf import authors_cor_batch
 from gnn_ecommerce_tpu_torch.models.lightgcn import LightGCNConfig, get_embedding, init_params
 from gnn_ecommerce_tpu_torch.models.losses import bpr_loss, reg_loss
 from gnn_ecommerce_tpu_torch.models.svd import SVDConfig, pad_edges, svd_epoch
 from gnn_ecommerce_tpu_torch.ops._kernels import (
     ALL_KERNELS,
     ELL_GATHER,
+    INTENT_GATHER,
     LANE_GATHER,
     ROW_GATHER,
     SEGREDUCE,
@@ -355,6 +357,7 @@ from gnn_ecommerce_tpu_torch.ops.spmm_fast import (
     gather_segreduce_bucketed,
     segreduce_plain,
 )
+from gnn_ecommerce_tpu_torch.ops import routing
 from gnn_ecommerce_tpu_torch.ops.spmm_sharded import (
     build_sharded_fast_ops,
     sharded_to_items,
@@ -450,6 +453,8 @@ KERNELS = {
     "segreduce_cast_bf16": (SEGREDUCE, "cast_bf16"),
     "ell_gather_f32": (ELL_GATHER, "float32"),
     "ell_gather_bf16": (ELL_GATHER, "bfloat16"),
+    "intent_gather_f32": (INTENT_GATHER, "float32"),
+    "intent_gather_bf16": (INTENT_GATHER, "bfloat16"),
     "stream_sum_bf16": (STREAM_SUM, "bfloat16"),
     "tile_segreduce_f32": (TILE_SEGREDUCE, "float32"),
     "tile_segreduce_bf16": (TILE_SEGREDUCE, "bfloat16"),
@@ -516,6 +521,12 @@ SVD_EPOCH_RTOL, SVD_EPOCH_ATOL = 1e-5, 1e-7
 # 16,384-user head (the three training cells; the first width is the row's).
 ELL_F32_DIM = 90
 ELL_BF16_DIMS = (90, 80, 64)
+# The intent gather's rows of the kernels line: DGCF's benchmark cell (its
+# graph at this seed, its width and intents), and phase 20's DGCF training
+# at the cell's sizes on phase 2's corpus.
+DGCF_CELL = "benchmark/configs/dgcf-cosmetics-d64-k4.json"
+DGCF_CELL_SEED = 26
+DGCF_BATCHES = 2
 # Widths of K1's edge cases: with f32, bf16 and padded bf16 tables they take
 # every (vector width, loads per arc) instance of csrc/segreduce.cu.
 K1_CASE_DIMS = (1, 33, 62, 64, 90, 127, 250, 255, 256)
@@ -1376,6 +1387,119 @@ def ell_gather_rows(split, tail: tuple, dev: torch.device, seed: int) -> list:
     ]
     bf16[0]["dims"] = {str(r["d"]): r for r in bf16[1:]}
     return [f32, bf16[0]]
+
+
+def check_intent_gather(name: str, rg, dim: int, k: int, gather, seed: int) -> dict:
+    """DGCF's intent gather (routing.intent_gather) over ``rg``'s plan
+    against its plain version, intent_gather_plain, in both directions: the
+    routed product over the heads (weights w) and its transpose, which the
+    gradient for x runs (each arc's weights from its reverse arc, w[rev]).
+    Each row within two f32 summation bounds of a sum of its arcs plus its
+    segments' combine (the plain version adds a split row's arcs in another
+    order), the same bytes from a second call, two launches counted a
+    direction; then the dispatch's time (the rows' cast and the kernel,
+    intent_spmm), the kernel's alone on its prepared rows, per pass, the
+    plain version's and the bound: the plan's bytes (each arc's tail id and
+    K weights, each gathered row and each output row once). No library
+    kernel takes K weights an arc."""
+    dev = rg.src.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rg.n_nodes, dim, generator=gen, device=dev) * 0.1
+    w = torch.rand(rg.n_arcs, k, generator=gen, device=dev)
+    rows = ell_table(x, gather)
+    mode = "float32" if gather is None else "bfloat16"
+    lens = (rg.indptr[1:] - rg.indptr[:-1])[:, None].float()
+    margin = max_err = scale = 0.0
+    for weights in (w, w.index_select(0, rg.rev)):
+        before = INTENT_GATHER.launches[mode]
+        out = routing.intent_gather(rows, weights, rg)
+        assert torch.equal(out, routing.intent_gather(rows, weights, rg)), f"{name}: two calls gave different bytes"
+        assert INTENT_GATHER.launches[mode] == before + 2, f"{name}: the kernel was not launched"
+        ref = routing.intent_gather_plain(rows, weights, rg)
+        limit = 2 * (lens + 2) * 2.0**-24 * routing.intent_gather_plain(rows.float().abs(), weights, rg)
+        err = (out - ref).abs()
+        margin = max(margin, (err / (limit + 1e-30)).max().item())
+        max_err, scale = max(max_err, err.max().item()), max(scale, ref.abs().max().item())
+        del out, ref, limit, err
+    assert margin <= 1, f"{name}: an error {margin:.3f} x the summation bound"
+    n_arcs, rows_read = rg.n_arcs, int(torch.unique(rg.src).numel())
+    bytes_once = n_arcs * (4 + 4 * k) + rows_read * dim * rows.element_size() + rg.n_nodes * dim * 4
+    flops = 2 * n_arcs * dim
+    with torch.no_grad():
+        kernel_ms = time_ms(lambda: routing.intent_spmm(w, x, rg, gather))
+    kernel_only_ms = time_ms(lambda: INTENT_GATHER(rows, w, rg.plan))
+    plain_ms = time_ms(lambda: routing.intent_gather_plain(rows, w, rg), reps=5)
+    names = {"intent_rows": "rows", **({"intent_combine": "combine"} if rg.plan.n_split_rows else {})}
+    passes = named_passes(name, lambda: INTENT_GATHER(rows, w, rg.plan), names)
+    deg = lens.squeeze(1)
+    stats = {
+        "arcs": n_arcs, "n_out": rg.n_nodes, "d": dim, "intents": k, "mode": mode,
+        "max_degree": int(deg.max()), "split_arcs": routing.INTENT_SPLIT_ARCS,
+        "split_rows": rg.plan.n_split_rows, "segments": rg.plan.n_partial, "work_items": rg.plan.n_work,
+    }
+    print(
+        f"  {name}: {json.dumps(stats)} max_abs_err {max_err:.3e} (max |ref| {scale:.3e}, "
+        f"{margin:.3f} of the summation bound, both directions) equal bytes on a second call; kernel_ms "
+        f"{kernel_ms:.4f} (kernel alone {kernel_only_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
+        f"{max(bytes_once / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3:.4f}",
+        flush=True,
+    )
+    return {
+        **kernel_row(
+            name, "gnn_ecommerce_tpu_torch/csrc/intent_gather.cu",
+            "none: DGCF has no counterpart in the JAX package", max_err, kernel_ms, plain_ms, None,
+            bytes_once, flops,
+        ),
+        "kernel_only_ms": kernel_only_ms, "pass_ms": passes, "bound_margin": margin, **stats,
+    }
+
+
+def intent_gather_rows(dev: torch.device, seed: int) -> list:
+    """The intent gather's rows of the kernels line (check_intent_gather):
+    f32 and bf16 rows over the routing graph of DGCF's benchmark cell
+    (DGCF_CELL at DGCF_CELL_SEED: 20.2M arcs, every hub row split) at its
+    width and intents; standard normal tables made from ``seed``."""
+    from benchmark import inputs
+
+    with open(DGCF_CELL) as f:
+        config = json.load(f)
+    g, model = config["graph"], config["model"]
+    (u, i, w), _ = inputs.graph_edges(config, DGCF_CELL_SEED, dev)
+    rg = routing.build_routing_graph(build_graph(u, i, w, g["n_users"], g["n_items"], device=dev))
+    del u, i, w
+    dim, k = model["embedding_dim"], model["n_factors"]
+    return [check_intent_gather(name, rg, dim, k, gather, seed)
+            for name, gather in (("intent_gather_f32", None), ("intent_gather_bf16", torch.bfloat16))]
+
+
+def dgcf_train_path(prepared: PreparedData, dev: torch.device, seed: int) -> str:
+    """DGCF as a user trains it: ``train()`` with ``model="dgcf"`` at the
+    benchmark cell's sizes (d 64, K 4, T 2, one layer, batch 2000) on
+    ``prepared``, one epoch of DGCF_BATCHES steps with rows gathered in f32
+    and then in bf16; each epoch's loss finite, its ``cor`` term positive,
+    its checkpoint recording the model and the authors' ``cor_batch``."""
+    with open(DGCF_CELL) as f:
+        config = json.load(f)
+    model, tr = config["model"], config["train"]
+    want_cor = authors_cor_batch(prepared.n_users, prepared.n_items, len(prepared.edge_user), tr["batch_size"])
+    out = []
+    for fast in ("f32", "bf16"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dgcf_") as ckpt:
+            result = train(prepared, TrainConfig(
+                latent_dim=model["embedding_dim"], n_layers=model["num_layers"], batch_size=tr["batch_size"],
+                lr=tr["lr"], decay=tr["decay"], fast_bipartite=fast, model="dgcf",
+                dgcf_factors=model["n_factors"], dgcf_iterations=model["n_iterations"],
+                cor_weight=model["cor_weight"], epochs=1, batches_per_epoch=DGCF_BATCHES,
+                checkpoint_dir=ckpt, async_saves=False, seed=seed,
+            ), verbose=False, device=dev)
+            (h,) = result.history
+            assert np.isfinite(h["loss"]) and h["cor_loss"] > 0, h
+            _, meta = load_checkpoint(ckpt, LAST_NAME)
+            hp = meta["hyperparams"]
+            assert (hp["model"], hp["cor_batch"]) == ("dgcf", want_cor), hp
+        out.append(f"{fast}: loss {h['loss']:.6f} cor {h['cor_loss']:.3e} train_s {h['train_s']:.3f} "
+                   f"eval_s {h['eval_s']:.3f} val R@20 {h['val_recall']:.6f}")
+    return f"cor_batch {want_cor}; " + "; ".join(out)
 
 
 def kernel_row(name, source, replaces, err, kernel_ms, plain_ms, library_ms, bytes_once, ops,
@@ -3336,6 +3460,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rows += ell_gather_rows(split, (t_iu_indptr, t_iu_src, t_iu_w), dev, args.seed)
         torch.cuda.empty_cache()
+        rows += intent_gather_rows(dev, args.seed)
+        torch.cuda.empty_cache()
         phase(3, "kernel", t0)
 
         # Serving path (phases 4-6): every launch count starts at 0 here.
@@ -3634,6 +3760,15 @@ def main(argv=None) -> int:
     )
     path_launches["probes"] = read_launches(to_users)
     phase(10, "probes", t0)
+
+    # DGCF's training path: counts from 0.
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launches()
+    detail = dgcf_train_path(prepared, dev, args.seed)
+    path_launches["train_dgcf"] = read_launches()
+    torch.cuda.empty_cache()
+    phase(20, "train_dgcf", t0, detail)
 
     # The entry points from an event log, as a user runs them.
     t0 = time.perf_counter()

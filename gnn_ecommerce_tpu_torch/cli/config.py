@@ -2,9 +2,10 @@
 
 Counterpart of ``gnn_ecommerce_tpu/cli/config.py``: one dataclass covers
 paths, the edge weighting scheme, the training hyperparameters (the port's
-``TrainConfig``, with its ``model``, ``lightgcn`` or ``simgcl``, and
-SimGCL's ``cl_weight``, ``cl_eps`` and ``cl_temp``), eval K and the mesh
-spec. YAML files need PyYAML, which is imported only by
+``TrainConfig``, with its ``model``, ``lightgcn``, ``simgcl`` or
+``dgcf``, SimGCL's ``cl_weight``, ``cl_eps`` and ``cl_temp``, and DGCF's
+``dgcf_factors``, ``dgcf_iterations`` and ``cor_weight``),
+eval K and the mesh spec. YAML files need PyYAML, which is imported only by
 :meth:`FrameworkConfig.load` and :meth:`FrameworkConfig.dump`: without it
 they raise, and everything else works.
 """

@@ -4,10 +4,14 @@
     python -m gnn_ecommerce_tpu_torch.cli.train --edges u_i_weight.csv -e 20
     python -m gnn_ecommerce_tpu_torch.cli.train --config framework.yaml
     python -m gnn_ecommerce_tpu_torch.cli.train --edges u_i_weight.csv --fast bf16 --model simgcl
+    python -m gnn_ecommerce_tpu_torch.cli.train --edges u_i_weight.csv --fast bf16 --model dgcf
 
-``--model simgcl`` is the port's own, on one device with ``--fast f32`` or
-``bf16``; its ``cl_weight``, ``cl_eps`` and ``cl_temp`` keep the paper's
-values unless a ``--config`` file's ``train`` section sets them.
+``--model simgcl`` and ``--model dgcf`` are the port's own, on one device
+with ``--fast f32`` or ``bf16``. SimGCL's ``cl_weight``, ``cl_eps`` and
+``cl_temp`` keep the paper's values unless a ``--config`` file's ``train``
+section sets them; DGCF's intents, routing iterations and ``cor`` weight are
+``--dgcf-factors``, ``--dgcf-iterations`` and ``--cor-weight`` (the authors'
+4, 2 and 0.01 by default), its ``cor`` rows a step the authors' rule.
 
 Runs on ``cuda`` unless ``--device cpu`` is given. After the ETL, the
 prepared dataset artifact is saved to ``data_dir`` so that serving can
@@ -158,9 +162,13 @@ def main(argv=None):
         help="dense-heavy-user head size K for the fast path (0=off)",
     )
     ap.add_argument(
-        "--model", choices=["lightgcn", "simgcl"],
-        help="simgcl: two noised full-graph views and InfoNCE beside BPR (needs --fast)",
+        "--model", choices=["lightgcn", "simgcl", "dgcf"],
+        help="simgcl: two noised full-graph views and InfoNCE beside BPR; dgcf: intent routing over "
+             "the whole graph (both need --fast)",
     )
+    ap.add_argument("--dgcf-factors", type=int, help="DGCF's intents K (latent_dim a multiple of K)")
+    ap.add_argument("--dgcf-iterations", type=int, help="DGCF's routing iterations a layer")
+    ap.add_argument("--cor-weight", type=float, help="the weight of DGCF's distance correlation")
     ap.add_argument(
         "--checkpoint-every", type=int,
         help="save LAST every N epochs (0 = only at the end)",
@@ -222,6 +230,12 @@ def main(argv=None):
         cfg.train.heavy_users = args.heavy_users
     if args.model:
         cfg.train.model = args.model
+    if args.dgcf_factors is not None:
+        cfg.train.dgcf_factors = args.dgcf_factors
+    if args.dgcf_iterations is not None:
+        cfg.train.dgcf_iterations = args.dgcf_iterations
+    if args.cor_weight is not None:
+        cfg.train.cor_weight = args.cor_weight
     if args.checkpoint_every is not None:
         cfg.train.checkpoint_every = args.checkpoint_every
     cfg.train.mesh_devices = cfg.mesh_devices

@@ -285,6 +285,69 @@ class EllGatherKernel(_Kernel):
         return out
 
 
+class IntentGatherKernel(_Kernel):
+    """``csrc/intent_gather.cu``: DGCF's intent-weighted gather-sum over an
+    ``IntentPlan`` (``ops/routing.py``): ``out[h, k-chunk] = Σ_arcs w[a, k]
+    · x[src_a, k-chunk]``, each output row written once.
+
+    Modes ``"float32"`` and ``"bfloat16"`` (the table's type; weights are
+    f32 in both): one call is one row pass, plus one combine pass when the
+    plan splits rows (``plan.n_split_rows``)."""
+
+    STEM = "intent_gather"
+    MODES = ("float32", "bfloat16")
+    MAX_DIM = 256
+    MAX_INTENTS = 8
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for fn in (lib.intent_gather_f32, lib.intent_gather_bf16):
+            fn.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr, i64, ptr, ptr, ptr]
+            fn.restype = ctypes.c_int
+
+    def __call__(self, table: torch.Tensor, w: torch.Tensor, plan) -> torch.Tensor:
+        """[n_out, D] f32 from a CUDA ``table`` in a layout of
+        ``ELL_GATHER.takes_rows`` (16-byte rows) and the arcs' weights ``w``
+        [E, K] f32, contiguous (arc-major), on the table's device."""
+        modes = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+        if table.dtype not in modes:
+            raise TypeError(f"intent_gather table must be f32 or bf16, got {table.dtype}")
+        if not EllGatherKernel.takes_rows(table):
+            raise ValueError("intent_gather takes [rows, D] tables of contiguous, 16-byte aligned rows")
+        d = table.shape[1]
+        per = 16 // table.element_size()
+        if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous() or w.shape[0] != plan.n_arcs:
+            raise ValueError(f"intent_gather takes contiguous [{plan.n_arcs}, K] f32 weights")
+        k = w.shape[1]
+        if not (0 < d <= self.MAX_DIM and 0 < k <= self.MAX_INTENTS and d % k == 0 and (d // k) % per == 0):
+            raise ValueError(
+                f"intent_gather needs D <= {self.MAX_DIM}, K <= {self.MAX_INTENTS} and D / K a multiple of "
+                f"{per} ({table.dtype}); got D {d}, K {k}"
+            )
+        if not table.is_cuda:
+            raise ValueError("the intent_gather kernel takes a CUDA tensor")
+        if plan.src.device != table.device or w.device != table.device:
+            raise ValueError("plan, weights and table must be on the same device")
+        mode = modes[table.dtype]
+        lib = self._lib or self.load()
+        fn = lib.intent_gather_bf16 if mode == "bfloat16" else lib.intent_gather_f32
+        out = torch.empty(plan.n_out, d, dtype=torch.float32, device=table.device)
+        partial = None
+        if plan.n_split_rows:
+            partial = torch.empty(plan.n_partial, d, dtype=torch.float32, device=table.device)
+        with _on_device(table.device):
+            rc = fn(
+                table.data_ptr(), table.stride(0), d, k, plan.src.data_ptr(), w.data_ptr(),
+                plan.item_arc.data_ptr(), plan.item_n.data_ptr(), plan.item_dest.data_ptr(), plan.n_work,
+                plan.comb_row.data_ptr(), plan.comb_ptr.data_ptr(), plan.n_split_rows,
+                None if partial is None else partial.data_ptr(), out.data_ptr(), _raw_stream(table.device),
+            )
+        if rc != 0:
+            raise RuntimeError(f"intent_gather launch failed: cudaError {rc}")
+        self.launches[mode] += 1
+        return out
+
+
 class StreamSumKernel(_Kernel):
     """``csrc/stream_sum.cu``: the [1, D] f32 column sums of a [rows, D] bf16
     stream, zero-initialized (K3, the segment reduce's streaming floor).
@@ -610,11 +673,12 @@ class LaneGatherKernel(_Kernel):
 
 SEGREDUCE = SegReduceKernel()
 ELL_GATHER = EllGatherKernel()
+INTENT_GATHER = IntentGatherKernel()
 STREAM_SUM = StreamSumKernel()
 TILE_SEGREDUCE = TileSegReduceKernel()
 ROW_GATHER = RowGatherKernel()
 LANE_GATHER = LaneGatherKernel()
-ALL_KERNELS = (SEGREDUCE, ELL_GATHER, STREAM_SUM, TILE_SEGREDUCE, ROW_GATHER, LANE_GATHER)
+ALL_KERNELS = (SEGREDUCE, ELL_GATHER, INTENT_GATHER, STREAM_SUM, TILE_SEGREDUCE, ROW_GATHER, LANE_GATHER)
 
 
 def launch_counts() -> dict:

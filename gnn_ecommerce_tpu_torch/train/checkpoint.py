@@ -10,6 +10,9 @@ either package loads and resumes in the other:
 A SimGCL run's ``hyperparams`` also hold ``model`` and ``layer_weights``
 (``[0, 1/L, …, 1/L]``), which :func:`model_config` hands to whatever
 scores the checkpoint; the JAX package's keys are the same for both models.
+A DGCF run's hold ``model``, ``n_factors`` and ``n_iterations``: its
+embedding is the routed forward, which nothing that scores a checkpoint
+runs, so :func:`model_config` refuses it.
 
 The leaves are in the JAX package's tree order, with its key paths: the
 params by sorted name (``[0]['embedding']``), then the Adam state as optax
@@ -143,8 +146,15 @@ def load_checkpoint(directory: str, name: str = BEST_NAME) -> tuple[list, dict]:
 def model_config(meta: dict, num_nodes: int, default: LightGCNConfig | None = None) -> LightGCNConfig:
     """The configuration a checkpoint scores with: its width and depth
     (``default``'s, else 64 and 3, where the meta lacks them) and its layer
-    weights (``layer_weights``; uniform where absent, as LightGCN's)."""
+    weights (``layer_weights``; uniform where absent, as LightGCN's). A
+    DGCF checkpoint raises: serving and ``cli.infer`` propagate with fixed
+    arc weights, and DGCF's are routed anew by every forward."""
     hp = meta.get("hyperparams", {})
+    if hp.get("model") == "dgcf":
+        raise ValueError(
+            "a DGCF checkpoint cannot be served or scored here: its embedding is the routed forward "
+            "(models/dgcf.py:dgcf_forward), which the service and cli.infer do not run"
+        )
     default = default or LightGCNConfig(num_nodes)
     weights = hp.get("layer_weights")
     return LightGCNConfig(

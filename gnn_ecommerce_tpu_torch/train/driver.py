@@ -6,7 +6,11 @@ layered branch (``fast_bipartite="off"``) and the fast branches (``"f32"``
 exact, ``"bf16"`` the main configuration) with the batched train forward
 ``fast_batch_embeddings`` (for ``model="simgcl"``, ``models/simgcl.py``'s
 loss, whose noise generator is reseeded every epoch as the sampler's is,
-and the layer weights ``[0, 1/L, …]`` in eval and the checkpoints); on a
+and the layer weights ``[0, 1/L, …]`` in eval and the checkpoints; for
+``model="dgcf"``, ``models/dgcf.py``'s routed forward over the whole graph,
+rows gathered in bf16 or f32 as ``fast_bipartite`` says, its ``cor`` rows'
+generator reseeded every epoch, eval on the routed forward, and neither
+B_ii nor plans nor a heavy head built); on a
 mesh (one ``torch.distributed`` process per device, every process running
 this driver) the JAX driver's three branches: ``partition="edge"`` with the
 fast edge partition (``parallel/edge_partition_fast.py``) or, with
@@ -58,8 +62,10 @@ from ..device import resolve_device
 from ..eval.evaluate import build_eval_buckets, evaluate_bucketed
 from ..graph.build import build_graph
 from ..models.lightgcn import LightGCNConfig, get_embedding, init_params
+from ..models.dgcf import authors_cor_batch, dgcf_forward, make_dgcf_loss_fn
 from ..models.simgcl import make_simgcl_loss_fn, simgcl_alphas
 from ..ops.bipartite import build_fast_bipartite, fast_batch_embeddings, fast_get_embedding, row_padded
+from ..ops.routing import build_routing_graph
 from ..parallel.distributed import barrier, joined_world, world_rank
 from ..sampling.bpr import make_sampler_data
 from .checkpoint import (
@@ -116,19 +122,28 @@ class TrainConfig:
     # seconds it idles T*(1-d)/d before taking the next snapshot (flush and
     # stop cut the idle short). 1.0 writes back to back.
     async_save_duty: float = 0.5
-    # "lightgcn", or "simgcl" (models/simgcl.py: two noised full-graph views
-    # and InfoNCE beside the BPR step; the one-device fast branches only).
+    # "lightgcn", "simgcl" (models/simgcl.py: two noised full-graph views
+    # and InfoNCE beside the BPR step) or "dgcf" (models/dgcf.py: intent
+    # routing over the whole graph); the last two on one device, with
+    # fast_bipartite f32 or bf16 (DGCF: the type its routed products gather).
     model: str = "lightgcn"
     # SimGCL's λ (the InfoNCE terms' weight), ε (the noise rows' length)
     # and τ (InfoNCE's temperature).
     cl_weight: float = 0.5
     cl_eps: float = 0.1
     cl_temp: float = 0.2
+    # DGCF's intents K, routing iterations T and the weight of its distance
+    # correlation (its rows a step are the authors' max(users, items) /
+    # (edges // batch + 1), which the checkpoint records as cor_batch).
+    dgcf_factors: int = 4
+    dgcf_iterations: int = 2
+    cor_weight: float = 0.01
 
     def hyperparams(self) -> dict:
         """The checkpoint's meta: the JAX package's keys, and for SimGCL its
         model, its layer weights (what eval, ``cli.infer`` and the service
-        score with) and its contrastive settings."""
+        score with) and its contrastive settings; for DGCF its model, K, T
+        and ``cor`` weight (the training driver adds its ``cor_batch``)."""
         hp = {
             "latent_dim": self.latent_dim,
             "n_layers": self.n_layers,
@@ -139,6 +154,9 @@ class TrainConfig:
         if self.model == "simgcl":
             hp.update(model="simgcl", layer_weights=list(simgcl_alphas(self.n_layers)),
                       cl_weight=self.cl_weight, cl_eps=self.cl_eps, cl_temp=self.cl_temp)
+        if self.model == "dgcf":
+            hp.update(model="dgcf", n_factors=self.dgcf_factors, n_iterations=self.dgcf_iterations,
+                      cor_weight=self.cor_weight)
         return hp
 
 
@@ -160,8 +178,8 @@ def _epoch_seed(seed: int, epoch: int) -> int:
 
 
 def _noise_seed(seed: int, epoch: int) -> int:
-    """SimGCL's noise generator's seed for one epoch, apart from the
-    sampler's."""
+    """SimGCL's noise generator's (DGCF's ``cor`` rows' generator's) seed
+    for one epoch, apart from the sampler's."""
     return _epoch_seed(seed, epoch) + (1 << 32)
 
 
@@ -372,13 +390,14 @@ def _train_impl(
     on_mesh = n_mesh > 1 or joined_world()
     if on_mesh and config.partition not in ("gspmd", "edge"):
         raise ValueError(f"partition must be gspmd or edge: {config.partition!r}")
-    if config.model not in ("lightgcn", "simgcl"):
-        raise ValueError(f"model must be lightgcn or simgcl: {config.model!r}")
-    simgcl = config.model == "simgcl"
-    if simgcl and (on_mesh or config.fast_bipartite == "off"):
+    if config.model not in ("lightgcn", "simgcl", "dgcf"):
+        raise ValueError(f"model must be lightgcn, simgcl or dgcf: {config.model!r}")
+    simgcl, dgcf = config.model == "simgcl", config.model == "dgcf"
+    if (simgcl or dgcf) and (on_mesh or config.fast_bipartite == "off"):
         raise ValueError(
-            "model simgcl trains on one device with fast_bipartite f32 or bf16 (its views run the "
-            "fast plans); the mesh branches and the layered branch train lightgcn only"
+            f"model {config.model} trains on one device with fast_bipartite f32 or bf16 (simgcl's "
+            "views run the fast plans, dgcf's routed products gather in that type); the mesh "
+            "branches and the layered branch train lightgcn only"
         )
     is_main = rank == 0
     t_setup0 = time.perf_counter()
@@ -445,7 +464,8 @@ def _train_impl(
     ckpt_view = lambda tree: tree
     post_restore = lambda p: p
     mesh = None
-    noise_gen = None  # SimGCL's, reseeded every epoch
+    noise_gen = None  # SimGCL's noise or DGCF's cor rows, reseeded every epoch
+    hyperparams = config.hyperparams()  # the checkpoints' meta
     bf16 = config.fast_bipartite == "bf16"
     mode = "bfloat16" if bf16 else "float32"
     edge_cap = config.batch_edge_cap or max(64 * config.batch_size, 8192)
@@ -456,6 +476,25 @@ def _train_impl(
         )
         run_steps = make_run_steps(step)
         graph = None  # superseded by the branch's layout
+    elif dgcf:
+        t0 = time.perf_counter()
+        rg = build_with_retry(lambda: build_routing_graph(graph, device=dev), "routing-graph build")
+        _sync(dev)
+        log({"msg": f"routing graph built in {time.perf_counter() - t0:.1f}s ({rg.n_arcs} arcs)",
+             "build_s": time.perf_counter() - t0})
+        graph = None  # superseded by rg
+        gather = torch.bfloat16 if bf16 else None
+        K, T, L = config.dgcf_factors, config.dgcf_iterations, config.n_layers
+        cor_batch = authors_cor_batch(n_users, n_items, num_edges, config.batch_size)
+        hyperparams["cor_batch"] = cor_batch
+        noise_gen = torch.Generator(device=dev)
+        loss_fn = make_dgcf_loss_fn(K, T, L, config.decay, config.cor_weight, cor_batch, noise_gen, gather)
+        _, run_steps = make_train_fns(
+            cfg, optimizer, config.batch_size, config.decay,
+            sample_replace=config.sample_replace, loss_fn=loss_fn,
+        )
+        compute_embedding = lambda p: dgcf_forward(p["embedding"], rg, K, T, L, gather)[0]
+        step_graph = rg
     elif fast:
         t0 = time.perf_counter()
         fb = build_with_retry(
@@ -533,7 +572,7 @@ def _train_impl(
         log({"msg": "async saves: off on a mesh of processes (rank 0 writes synchronously)"})
     elif config.async_saves:
         writer = CheckpointWriter(
-            config.checkpoint_dir, config.hyperparams(), duty=config.async_save_duty
+            config.checkpoint_dir, hyperparams, duty=config.async_save_duty
         )
         _state["writer"] = writer
         log({
@@ -551,7 +590,7 @@ def _train_impl(
             for name, kw in targets:
                 save_checkpoint(
                     config.checkpoint_dir, params_t, opt_t,
-                    hyperparams=config.hyperparams(), name=name, **kw,
+                    hyperparams=hyperparams, name=name, **kw,
                 )
         else:
             writer.save(params_t, opt_t, targets)
@@ -622,6 +661,7 @@ def _train_impl(
             "val_recall": recall,
             "dropped_arcs": metrics["dropped_arcs"],
             **({"cl_loss": metrics["loss"] - metrics["bpr_loss"] - metrics["reg_loss"]} if simgcl else {}),
+            **({"cor_loss": metrics["loss"] - metrics["bpr_loss"] - metrics["reg_loss"]} if dgcf else {}),
             "train_s": t_train,
             "eval_s": t_total - t_train,
             "epoch_s": t_total,

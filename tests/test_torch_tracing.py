@@ -2,7 +2,8 @@
 off it hands out one shared no-op object and keeps nothing; recording keeps
 each span's parent on its own thread's stack, its self time and the
 counters; under a torch profiler each span (and each mark, which is never
-recorded) is a host ``cpu_op`` event, not a user annotation; and the spans of the training step, the service's refresh
+recorded) is a host ``cpu_op`` event, not a user annotation; and the spans of the training step (LightGCN's,
+SimGCL's and DGCF's), the service's refresh
 and the fast-bipartite build appear where those paths run. Also the
 batcher's queue-wait and dispatch counters. On a card (skipped without one;
 ``python -m pytest tests/test_torch_tracing.py --noconftest -q -k copies``
@@ -275,6 +276,49 @@ def test_simgcl_step_spans_and_counters(recording):
     assert rep["counters"] == {"train.cl.noised_rows": 2 * LAYERS * (n_u + n_i),
                                "train.cl.view_arcs": 2 * LAYERS * 2 * len(u),
                                "ops.item_chain.factored": PRODUCTS}  # the clean term's f32 B_ii
+
+
+@pytest.mark.parametrize("recording", [True, False])
+def test_dgcf_step_spans_and_counters(recording):
+    """One DGCF step (K 2, T 3, L 2): ``train.dgcf`` with L·T
+    ``train.dgcf.iter``, each with its ``.softmax``, ``.degree`` and
+    ``.spmm``, L·T − 1 ``.score`` (the last layer's last update is skipped),
+    one ``train.dgcf.cor`` beside it; ``train.dgcf.routed_arcs`` counts arcs
+    × intents of every iteration, and no split rows on the CPU (the kernel's
+    plain version). Off, nothing."""
+    from gnn_ecommerce_tpu_torch.models.dgcf import make_dgcf_loss_fn
+    from gnn_ecommerce_tpu_torch.ops.routing import build_routing_graph
+
+    k, t, layers = 2, 3, 2
+    u, i, w, n_u, n_i, sampler = _tiny()
+    rg = build_routing_graph(build_graph(u, i, w, n_u, n_i, device="cpu"))
+    sdata = make_sampler_data(sampler, n_u, n_i, "cpu")
+    params = {"embedding": torch.randn(n_u + n_i, DIM, generator=torch.Generator().manual_seed(0)) * 0.1}
+    opt = Adam(0.001)
+    state = opt.init(params)
+    loss_fn = make_dgcf_loss_fn(k, t, layers, 1e-4, 0.01, 16, torch.Generator().manual_seed(2))
+    train_step, _ = make_train_fns(None, opt, BATCH, 1e-4, loss_fn=loss_fn)
+    gen = torch.Generator().manual_seed(1)
+    with tracing.recording():
+        pass  # drops what earlier tests kept
+    with tracing.recording() if recording else contextlib.nullcontext():
+        train_step(params, state, rg, sdata, gen)
+    rep = tracing.report()
+    if not recording:
+        assert rep == {"spans": {}, "counters": {}}
+        return
+    spans = rep["spans"]
+    iters = layers * t
+    for name, calls in (("train.dgcf", 1), ("train.dgcf.iter", iters), ("train.dgcf.softmax", iters),
+                        ("train.dgcf.degree", iters), ("train.dgcf.spmm", iters), ("train.dgcf.score", iters - 1),
+                        ("train.dgcf.cor", 1), ("train.forward", 1), ("train.backward", 1)):
+        assert spans[name]["calls"] == calls, name
+    for child, parent in (("train.dgcf", "train.forward"), ("train.dgcf.iter", "train.dgcf"),
+                          ("train.dgcf.softmax", "train.dgcf.iter"), ("train.dgcf.degree", "train.dgcf.iter"),
+                          ("train.dgcf.spmm", "train.dgcf.iter"), ("train.dgcf.score", "train.dgcf.iter"),
+                          ("train.dgcf.cor", "train.step")):
+        assert {parent_name(r) for r in records(child)} == {parent}, child
+    assert rep["counters"] == {"train.dgcf.routed_arcs": iters * 2 * len(u) * k}
 
 
 def test_fast_bipartite_build_spans_and_verbose_phases(capsys):
